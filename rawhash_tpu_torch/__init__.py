@@ -1,0 +1,9 @@
+"""PyTorch/CUDA port of the rawhash_tpu raw-signal mapper.
+
+The JAX package `rawhash_tpu` stays the reference.  This package runs the
+same single-device mapping path in PyTorch: plain tensor code for every
+stage, and hand-written CUDA kernels (built from `csrc/` at first use) where
+the reference used a Pallas kernel.  It imports the reference's
+framework-free modules (options, index build, host chain tail) and never
+imports jax.
+"""

@@ -1,0 +1,217 @@
+"""The per-chunk device step: raw signal -> sorted anchors with chain scores
+(port of rawhash_tpu/map/device_step.py, single device, host-tail path).
+
+    detect events -> sketch -> index lookup -> occurrence filter + rep_len ->
+    CSR hit expansion -> merge carried anchors -> sort -> chaining DP fill
+
+The host (map/engine.py) then backtracks chains and decides per read
+(reference: the body of ri_map_frag, rmap.cpp:210-387).
+"""
+
+from __future__ import annotations
+
+import time
+from typing import NamedTuple
+
+import torch
+
+from ..chain.fill import chain_fill
+from ..index.device import DeviceIndex, expand_hits, lookup_counts
+from ..signal.events import NormCarry, detect_events_batch
+from ..sketch.device import sketch_batch
+
+U32_MAX = 0xFFFFFFFF
+I32_MAX = 0x7FFFFFFF
+
+
+class ChunkOut(NamedTuple):
+    """All int32 except `processed` (bool); anchors sorted by (key, tpos)."""
+
+    key: torch.Tensor  # [B, N] key bits (rev<<31 | tid)
+    tpos: torch.Tensor  # [B, N]
+    qpos: torch.Tensor  # [B, N]
+    f: torch.Tensor  # [B, N] chain score ending at each anchor
+    p: torch.Tensor  # [B, N] best predecessor, -1 if none
+    n_anchors: torch.Tensor  # [B]
+    rep_len: torch.Tensor  # [B]
+    n_ev: torch.Tensor  # [B]
+    processed: torch.Tensor  # [B] enough events to map this chunk
+    overflow: torch.Tensor  # [B] seed hits past a_cap (not in the anchors)
+    carry: NormCarry
+    ev_offset: torch.Tensor  # [B] event offset after this chunk
+
+
+class _Stages:
+    """Wall time per stage into a StageProfiler, synchronising the device at
+    each mark so the time lands on the stage that spent it (no-op without a
+    profiler)."""
+
+    def __init__(self, prof, device: torch.device):
+        self.prof = prof
+        self.cuda = device.type == "cuda"
+        self.t = self._now() if prof is not None else 0.0
+
+    def _now(self) -> float:
+        if self.cuda:
+            torch.cuda.synchronize()
+        return time.perf_counter()
+
+    def mark(self, name: str) -> None:
+        if self.prof is not None:
+            now = self._now()
+            self.prof.add(name, now - self.t)
+            self.t = now
+
+
+def events_and_sketch(
+    sig, slen, carry, *,
+    window_length1, window_length2, threshold1, threshold2, peak_height,
+    e_cap, min_events,
+    diff, w, e, q, k, fine_min, fine_max, fine_range,
+    stages: _Stages | None = None,
+):
+    """Event detection (revent.c:257) then sketching (rsketch.c:271)."""
+    events, n_ev, carry2 = detect_events_batch(
+        sig, slen, carry,
+        window_length1=window_length1, window_length2=window_length2,
+        threshold1=threshold1, threshold2=threshold2, peak_height=peak_height,
+        e_cap=e_cap,
+    )
+    if stages is not None:
+        stages.mark("events")
+    processed = n_ev >= min_events  # reference: rmap.cpp:232
+    hashes, qpos_seed, seed_valid = sketch_batch(
+        events, n_ev,
+        diff=diff, w=w, e=e, q=q, k=k,
+        fine_min=fine_min, fine_max=fine_max, fine_range=fine_range,
+    )
+    seed_valid = seed_valid & processed[:, None]
+    if stages is not None:
+        stages.mark("sketch")
+    return events, n_ev, carry2, processed, hashes, qpos_seed, seed_valid
+
+
+def rep_len_from_filtered(qpos_seed, flt, span: int):
+    """Union length of the q-intervals of occurrence-filtered seeds
+    (rseed.c:134-151)."""
+    st_i = qpos_seed + 1
+    en_i = st_i + span + 1
+    cummax_en = torch.cummax(torch.where(flt, en_i, 0), dim=1).values
+    excl = torch.nn.functional.pad(cummax_en[:, :-1], (1, 0))
+    contrib = torch.clamp_min(en_i - torch.maximum(st_i, excl), 0)
+    return torch.where(flt, contrib, 0).sum(dim=1).to(torch.int32)
+
+
+def merge_sort_fill(
+    a_key, a_tpos, a_qpos, n_new,
+    prev_key, prev_tpos, prev_qpos, n_prev,
+    *,
+    span: int, max_dist_t: int, max_dist_q: int, bw: int, max_iter: int,
+    chn_pen_gap: float, chn_pen_skip: float,
+    stages: _Stages | None = None,
+):
+    """Carried-anchor merge -> sort by (key, tpos) -> chaining DP fill
+    (rmap.cpp:111-121 + mg_lchain_dp, lchain.c:385).  Keys are u32 values in
+    int64.  Returns (key bits, tpos, qpos, n_anchors, f, p), all int32."""
+    dev = a_key.device
+    a_cap, p_cap = a_key.shape[1], prev_key.shape[1]
+    new_valid = torch.arange(a_cap, device=dev)[None, :] < n_new[:, None]
+    prev_valid = torch.arange(p_cap, device=dev)[None, :] < n_prev[:, None]
+    m_key = torch.cat([torch.where(new_valid, a_key, U32_MAX),
+                       torch.where(prev_valid, prev_key, U32_MAX)], dim=1)
+    m_tpos = torch.cat([torch.where(new_valid, a_tpos, I32_MAX),
+                        torch.where(prev_valid, prev_tpos, I32_MAX)], dim=1)
+    m_qpos = torch.cat([a_qpos, prev_qpos], dim=1).to(torch.int32)
+    n_anchors = (n_new + n_prev).to(torch.int32)
+
+    # one stable sort on key<<31 | tpos (tpos < 2^31, so the order is the
+    # reference's (key, tpos) lexicographic one; the pad is 2^63 - 1)
+    comp, order = torch.sort((m_key << 31) | m_tpos, dim=1, stable=True)
+    s_key = comp >> 31
+    s_key = torch.where(s_key >= 1 << 31, s_key - (1 << 32), s_key).to(torch.int32)
+    s_tpos = (comp & I32_MAX).to(torch.int32)
+    s_qpos = torch.gather(m_qpos, 1, order)
+    if stages is not None:
+        stages.mark("sort")
+
+    f, p = chain_fill(
+        s_key, s_tpos, s_qpos, n_anchors,
+        q_span=span, max_dist_t=max_dist_t, max_dist_q=max_dist_q,
+        bw=bw, max_iter=max_iter,
+        chn_pen_gap=chn_pen_gap, chn_pen_skip=chn_pen_skip,
+    )
+    if stages is not None:
+        stages.mark("fill")
+    return s_key, s_tpos, s_qpos, n_anchors, f, p
+
+
+def chunk_step(
+    didx: DeviceIndex,
+    sig: torch.Tensor,  # f16/f32 [B, L]
+    slen: torch.Tensor,  # i32 [B]
+    carry: NormCarry,
+    ev_offset: torch.Tensor,  # i32 [B]
+    prev_key: torch.Tensor,  # int64 [B, P] carried anchor keys (u32 values)
+    prev_tpos: torch.Tensor,  # i32 [B, P]
+    prev_qpos: torch.Tensor,  # i32 [B, P]
+    n_prev: torch.Tensor,  # i32 [B]
+    *,
+    diff: float, w: int, e: int, q: int, k: int,
+    fine_min: float, fine_max: float, fine_range: float,
+    window_length1: int, window_length2: int,
+    threshold1: float, threshold2: float, peak_height: float,
+    e_cap: int, a_cap: int,
+    min_events: int, mid_occ: int,
+    max_dist_t: int, max_dist_q: int, bw: int, max_iter: int,
+    chn_pen_gap: float, chn_pen_skip: float,
+    prof=None,
+) -> ChunkOut:
+    """One chunk for a batch of reads.  `prof` (a StageProfiler) receives
+    the wall time of each stage: events, sketch, lookup+expand, sort,
+    fill."""
+    stages = _Stages(prof, sig.device) if prof is not None else None
+    span = k + e - 1
+    sig = sig.to(torch.float32)  # signal may arrive as f16
+
+    events, n_ev, carry2, processed, hashes, qpos_seed, seed_valid = (
+        events_and_sketch(
+            sig, slen, carry,
+            window_length1=window_length1, window_length2=window_length2,
+            threshold1=threshold1, threshold2=threshold2,
+            peak_height=peak_height, e_cap=e_cap, min_events=min_events,
+            diff=diff, w=w, e=e, q=q, k=k,
+            fine_min=fine_min, fine_max=fine_max, fine_range=fine_range,
+            stages=stages,
+        )
+    )
+    ev_offset2 = ev_offset + torch.where(processed, n_ev, 0)
+
+    # seed lookup + occurrence filter (reference: ri_collect_matches)
+    start, count = lookup_counts(didx, hashes, seed_valid)
+    flt = count > mid_occ
+    rep_len = rep_len_from_filtered(qpos_seed, flt, span)
+    count = torch.where(flt, 0, count)
+
+    # expansion to anchors (reference: collect_seed_hits, rmap.cpp:51)
+    seed_c, hit, _, n_hits, overflow = expand_hits(didx, start, count, a_cap)
+    a_qpos = torch.gather(qpos_seed, 1, seed_c) + ev_offset[:, None]
+    hit_ps = hit & U32_MAX
+    a_key = ((hit_ps & 1) << 31) | (hit >> 32)
+    a_tpos = (hit_ps >> 1) & I32_MAX
+    if stages is not None:
+        stages.mark("lookup+expand")
+
+    s_key, s_tpos, s_qpos, n_anchors, f, p = merge_sort_fill(
+        a_key, a_tpos, a_qpos, n_hits,
+        prev_key, prev_tpos, prev_qpos, n_prev,
+        span=span, max_dist_t=max_dist_t, max_dist_q=max_dist_q,
+        bw=bw, max_iter=max_iter,
+        chn_pen_gap=chn_pen_gap, chn_pen_skip=chn_pen_skip,
+        stages=stages,
+    )
+    return ChunkOut(
+        key=s_key, tpos=s_tpos, qpos=s_qpos, f=f, p=p, n_anchors=n_anchors,
+        rep_len=rep_len, n_ev=n_ev, processed=processed,
+        overflow=overflow.to(torch.int32), carry=carry2,
+        ev_offset=ev_offset2.to(torch.int32),
+    )
