@@ -3,8 +3,9 @@
 The library has a plain C interface and is loaded with ctypes, so the build
 needs only `nvcc` (no PyTorch headers: seconds instead of minutes).  It is
 built at first use and cached by a hash of the sources and flags under
-`build/rawhash_tpu_torch/` at the repository root; concurrent builds each
-write a private temp file and rename it into place.
+`build/rawhash_tpu_torch/` at the repository root: one `nvcc -c` per source,
+all started together, then one link.  Concurrent builds each write private
+temp files and rename the library into place.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "rawhash_tpu_torc
 # f32 multiply and add (an FMA can move the truncated int32 score by 1)
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC",
+    "--fmad=false", "-Xptxas=-v", "-Xcompiler", "-fPIC",
 ]
 
 _LOCK = threading.Lock()
@@ -53,6 +54,22 @@ def library_path() -> Path:
     return BUILD_DIR / f"rawhash_tpu_torch_{h.hexdigest()[:16]}.so"
 
 
+def _run(cmds) -> str:
+    """Run the commands in parallel; their joined output, or raise."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    logs, failed = [], []
+    for cmd, proc in procs:
+        out = proc.communicate()[0]
+        logs.append(out)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return "".join(logs)
+
+
 def build() -> Path:
     """Compile `csrc/*.cu` unless the cached library is current.  The
     compiler's register/shared-memory report lands beside it as `.log`."""
@@ -60,17 +77,21 @@ def build() -> Path:
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.stem}.tmp{os.getpid()}.so")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-           *map(str, sorted(CSRC.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    tag = f"{so.stem}.tmp{os.getpid()}"
+    srcs = sorted(CSRC.glob("*.cu"))
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in srcs]
+    tmp = so.with_name(f"{tag}.so")
+    nvcc = nvcc_path()
+    try:
+        log = _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                    for src, o in zip(srcs, objs)])
+        log += _run([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
+        so.with_suffix(".log").write_text(log)
+        os.replace(tmp, so)
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-        )
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, so)
     return so
 
 

@@ -15,7 +15,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from rawhash_tpu.index.build import RawIndex
+from .build import RawIndex
 
 
 @dataclasses.dataclass(frozen=True)

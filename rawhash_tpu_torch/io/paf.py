@@ -2,8 +2,7 @@
 
 from __future__ import annotations
 
-from rawhash_tpu.index.build import RawIndex
-
+from ..index.build import RawIndex
 from ..map.engine import ReadResult
 
 

@@ -1,11 +1,14 @@
-"""The per-chunk device step: raw signal -> sorted anchors with chain scores
-(port of rawhash_tpu/map/device_step.py, single device, host-tail path).
+"""The per-chunk device step (port of rawhash_tpu/map/device_step.py,
+single device):
 
     detect events -> sketch -> index lookup -> occurrence filter + rep_len ->
     CSR hit expansion -> merge carried anchors -> sort -> chaining DP fill
 
-The host (map/engine.py) then backtracks chains and decides per read
-(reference: the body of ri_map_frag, rmap.cpp:210-387).
+`chunk_step` stops there, and the host (map/engine.py) backtracks chains
+and decides per read.  `chunk_step_tail` goes on on the device: chain
+backtrack -> compaction -> carried-anchor re-pick, so only per-chain
+summaries leave it and the carried anchors stay on it (reference: the body
+of ri_map_frag, rmap.cpp:210-387, with lchain.c:95-281).
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..chain.backtrack import chain_backtrack, compact_from_chain_stats
 from ..chain.fill import chain_fill
 from ..index.device import DeviceIndex, expand_hits, lookup_counts
 from ..signal.events import NormCarry, detect_events_batch
@@ -214,4 +218,93 @@ def chunk_step(
         rep_len=rep_len, n_ev=n_ev, processed=processed,
         overflow=overflow.to(torch.int32), carry=carry2,
         ev_offset=ev_offset2.to(torch.int32),
+    )
+
+
+class ChunkOutTail(NamedTuple):
+    """Device-tail chunk output: per-chain summaries and per-read scalars
+    for the host; the carried chain anchors (the reference's *_a arrays,
+    rmap.cpp:111-116) stay on the device for the next chunk's merge."""
+
+    # [B, K, 10] per chain (target-sorted): score, cnt, key (u32 bits),
+    # tpos0, qpos0, tposL, qposL, mlen, blen, valid
+    summaries: torch.Tensor
+    # [B, 8]: 0 n_chains, 1 rep_len, 2 n_ev, 3 processed, 4 hit_overflow,
+    # 5 ev_offset, 6 chain_overflow, 7 prev_overflow
+    scalars: torch.Tensor
+    prev_key: torch.Tensor  # int64 [B, P_out] u32 key values
+    prev_tpos: torch.Tensor  # i32 [B, P_out]
+    prev_qpos: torch.Tensor  # i32 [B, P_out]
+    n_prev: torch.Tensor  # i32 [B]
+    carry: NormCarry
+    ev_offset: torch.Tensor  # i32 [B]
+
+
+def chunk_step_tail(
+    didx: DeviceIndex,
+    sig: torch.Tensor,  # f16/f32 [B, L]
+    slen: torch.Tensor,  # i32 [B]
+    carry: NormCarry,
+    ev_offset: torch.Tensor,  # i32 [B]
+    prev_key: torch.Tensor,  # int64 [B, P_in] carried anchors (device-resident)
+    prev_tpos: torch.Tensor,  # i32 [B, P_in]
+    prev_qpos: torch.Tensor,  # i32 [B, P_in]
+    n_prev: torch.Tensor,  # i32 [B]
+    active: torch.Tensor,  # i32 [B] 1 = read still mapping (keeps its carry)
+    *,
+    k_cap: int, p_out: int, min_cnt: int, min_sc: int,
+    prof=None,
+    **step,
+) -> ChunkOutTail:
+    """chunk_step, then the chain backtrack and compaction on the device
+    (reference: rmap.cpp:210-387 with mg_chain_backtrack + compact_a,
+    lchain.c:95-281).  `step` holds chunk_step's keyword parameters; `prof`
+    also receives the backtrack and compact stages."""
+    n_prev = torch.where(active != 0, n_prev, 0)
+    out = chunk_step(didx, sig, slen, carry, ev_offset, prev_key, prev_tpos,
+                     prev_qpos, n_prev, prof=prof, **step)
+    return tail_finish(
+        out, span=step["k"] + step["e"] - 1, bw=step["bw"], min_cnt=min_cnt,
+        min_sc=min_sc, k_cap=k_cap, p_out=p_out, prof=prof,
+    )
+
+
+def tail_finish(out: ChunkOut, *, span: int, bw: int, min_cnt: int,
+                min_sc: int, k_cap: int, p_out: int, prof=None) -> ChunkOutTail:
+    """Backtrack (the kernel, with chain statistics) -> compaction ->
+    carried-anchor re-pick of a chunk's sorted, filled anchors.  It reads
+    `out` only, so a capacity regrow of k_cap or p_out reruns it alone on
+    the same ChunkOut."""
+    stages = _Stages(prof, out.f.device) if prof is not None else None
+    stats = chain_backtrack(
+        out.f, out.p, out.n_anchors, out.tpos, out.qpos,
+        min_cnt=min_cnt, min_sc=min_sc, max_drop=bw, k_cap=k_cap, q_span=span,
+    )
+    u_sc, u_cnt, n_u, v, n_v, chain_ovf, u_ml, u_bl, u_lo, u_hi = stats
+    if stages is not None:
+        stages.mark("backtrack")
+    asc, _, summaries = compact_from_chain_stats(
+        u_sc, u_cnt, u_ml, u_bl, u_lo, u_hi, n_u, v, n_v,
+        out.key, out.tpos, out.qpos, p_out=p_out,
+    )
+
+    # carried anchors for the next chunk (chain-major discovery order, the
+    # reference's *_a layout)
+    take = torch.clamp_max(n_v, p_out)
+    sel = asc.long().clamp(0, out.key.shape[1] - 1)
+    pvalid = torch.arange(p_out, device=asc.device)[None, :] < take[:, None]
+    pk = torch.where(pvalid, torch.gather(out.key, 1, sel).long() & U32_MAX, U32_MAX)
+    pt = torch.where(pvalid, torch.gather(out.tpos, 1, sel), 0)
+    pq = torch.where(pvalid, torch.gather(out.qpos, 1, sel), 0)
+    scalars = torch.stack(
+        [n_u, out.rep_len, out.n_ev, out.processed.to(torch.int32),
+         out.overflow, out.ev_offset, chain_ovf, torch.clamp_min(n_v - p_out, 0)],
+        dim=1,
+    ).to(torch.int32)
+    if stages is not None:
+        stages.mark("compact")
+    return ChunkOutTail(
+        summaries=summaries, scalars=scalars, prev_key=pk, prev_tpos=pt,
+        prev_qpos=pq, n_prev=take.to(torch.int32), carry=out.carry,
+        ev_offset=out.ev_offset,
     )

@@ -1,34 +1,49 @@
-"""Real-time mapping engine: batch chunk loop, host chain tail, decisions and
-PAF records (port of rawhash_tpu/map/engine.py, host-tail path).
+"""Real-time mapping engine: batch chunk loop, chain tail, decisions and
+PAF records (port of rawhash_tpu/map/engine.py, single device).
 
 Per batch of reads it keeps the per-read carry (normalisation sums, event
-offset, carried chain anchors), runs one device chunk step per chunk
-(map/device_step.py), and runs the sequential tail per read on the host:
-chain backtracking in native C++, regions, MAPQ and the mapping decision
-(reference: map_worker_for, rmap.cpp:389-599).  Reads leave the loop as
-soon as a decision fires.  Batches run one after another.
+offset, carried chain anchors) and runs one device chunk step per chunk
+(map/device_step.py).  The chain tail runs one of two ways, bound per batch:
+
+  host tail    every anchor's (f, p) comes to the host, which backtracks
+               chains in native C++ per read;
+  device tail  the backtrack kernel and the compaction run on the device,
+               only per-chain summaries come to the host, and the carried
+               anchors stay on the device.
+
+Then, per read on the host: regions, MAPQ and the mapping decision
+(reference: map_worker_for, rmap.cpp:389-599).  Engines start on the host
+tail and switch to the device tail once the observed anchor watermark
+passes `tail_switch_anchors`, by the reference engine's rule;
+RAWHASH_TPU_DEVICE_TAIL=1 forces the device tail, RAWHASH_TPU_NO_DEVICE_TAIL=1
+forbids it.  Reads leave the loop as soon as a decision fires.  Batches run
+one after another.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+import sys
 import time
 
 import numpy as np
 import torch
 
-from rawhash_tpu._native import chain_tail_native, gen_regions_native
-from rawhash_tpu.chain.host import chain_backtrack, compact_chains
-from rawhash_tpu.chain.regions import (
-    gen_regs, select_sub, set_mapq, set_parent, wang_hash32,
+from .._native import (
+    chain_tail_native, gen_regions_native, gen_regions_summ_native,
 )
-from rawhash_tpu.config import MapFlag, MapOptions
-from rawhash_tpu.index.build import RawIndex, update_mid_occ
-from rawhash_tpu.utils.timers import StageProfiler
-
+from ..chain.host import chain_backtrack, compact_chains
+from ..chain.regions import (
+    gen_regs, gen_regs_from_summaries, select_sub, set_mapq, set_parent,
+    wang_hash32,
+)
+from ..config import MapFlag, MapOptions
+from ..index.build import RawIndex, update_mid_occ
 from ..index.device import DeviceIndex
 from ..signal.events import NormCarry
-from .device_step import chunk_step
+from ..utils.timers import StageProfiler
+from .device_step import chunk_step, tail_finish
 
 
 def _pow2_up(x: int) -> int:
@@ -109,6 +124,19 @@ def fill_params(iopt, mopt: MapOptions) -> dict:
     )
 
 
+def tail_switch_anchors(index: RawIndex, mopt: MapOptions) -> int:
+    """The anchor watermark above which the engine takes the device tail:
+    the reference engine's 8 MiB per-chunk budget for the host tail's
+    anchor fetch at its packed width of 2 * (key_words + 3) bytes per
+    anchor (engine.py:143-152, 212-221), so both engines switch at the
+    same watermark."""
+    max_len = int(max(index.seq_lens)) if index.n_seq else 1
+    tid_bits = (max(index.n_seq, 1) - 1).bit_length() if index.n_seq > 1 else 0
+    total_bits = 1 + tid_bits + max(1, max_len.bit_length())
+    key_words = 1 if total_bits <= 16 else 2 if total_bits <= 32 else 4
+    return max(512, (8 << 20) // (2 * (key_words + 3) * max(1, mopt.batch_reads)))
+
+
 class MappingEngine:
     def __init__(self, index: RawIndex, mopt: MapOptions, device="cuda"):
         missing = unsupported_options(mopt)
@@ -126,11 +154,24 @@ class MappingEngine:
         self.span = self.iopt.k + self.iopt.e - 1
         self.fill_params = fill_params(self.iopt, mopt)
         self.stats = {"hit_overflow": 0, "prev_overflow": 0, "reads": 0,
-                      "mapped": 0, "anchor_regrows": 0}
+                      "mapped": 0, "anchor_regrows": 0, "chain_overflow": 0,
+                      "tail_chunks": 0}
         self._occ_cache = None
         # observed per-chunk anchor watermark (p95 of hits + overflow);
         # once set it sizes the next batches' a_cap instead of the model
         self._learned_need = 0
+        # device-tail capacities converged by earlier batches
+        self._learned_kcap = 0
+        self._learned_pcap = 0
+        # device-tail mode (reference engine's rule, engine.py:192-221):
+        # forced by RAWHASH_TPU_DEVICE_TAIL, forbidden by
+        # RAWHASH_TPU_NO_DEVICE_TAIL, else switched on once the anchor
+        # watermark passes tail_switch_anchors.  Batches bind the mode at
+        # creation.
+        eligible = not os.environ.get("RAWHASH_TPU_NO_DEVICE_TAIL")
+        self.device_tail = eligible and bool(os.environ.get("RAWHASH_TPU_DEVICE_TAIL"))
+        self._tail_auto = eligible and not self.device_tail
+        self.tail_switch_anchors = tail_switch_anchors(index, mopt)
 
     # ---------- decisions and the host tail ----------
 
@@ -285,6 +326,16 @@ class _BatchState:
         self.t_start = np.full(b, time.perf_counter())
         self.t_decided = np.zeros(b, dtype=np.float64)
         self.chunk_idx = 0
+        # the tail mode binds at batch creation, so an engine-level switch
+        # never changes an in-flight batch
+        self.tail = engine.device_tail
+        # device tail: carried anchors stay on the device between chunks
+        # (key, tpos, qpos, n_prev), and the chain-summary capacity grows on
+        # overflow from the width earlier batches converged to
+        self.prev_dev = None
+        self.k_cap = max(64, engine._learned_kcap)
+        if self.tail and engine._learned_pcap > self.p_cap:
+            self.p_cap = engine._learned_pcap
 
     def done(self) -> bool:
         return self.chunk_idx >= self.max_chunk or not self.active.any()
@@ -370,8 +421,8 @@ def _quarantine_overflow(engine: MappingEngine, st: _BatchState, inputs,
 
 
 def _run_chunk(engine: MappingEngine, st: _BatchState) -> None:
-    """One chunk of a batch: device step, then the host tail and decision
-    per live read (reference: rmap.cpp:415-500)."""
+    """One chunk of a batch: the device step, then the chain tail and the
+    decision per live read (reference: rmap.cpp:415-500)."""
     mo = engine.mopt
     dev = engine.device
     c = st.chunk_idx
@@ -385,13 +436,17 @@ def _run_chunk(engine: MappingEngine, st: _BatchState) -> None:
         slen[i] = seg.shape[0]
 
     t0 = time.perf_counter()
+    # signal travels to the device as f16 and is widened there, as in the
+    # reference engine (events depend on that rounding)
+    sig = torch.from_numpy(chunk.astype(np.float16)).to(dev)
+    slen_dev = torch.from_numpy(slen).to(dev)
+    if st.tail:
+        engine.profiler.add("transfer", time.perf_counter() - t0)
+        _run_chunk_tail(engine, st, sig, slen_dev, slen)
+        return
     p_use = max(1, int(st.n_prev.max()))  # live carried-anchor width
     inputs = (
-        # signal travels to the device as f16 and is widened there, as in
-        # the reference engine (events depend on that rounding)
-        torch.from_numpy(chunk.astype(np.float16)).to(dev),
-        torch.from_numpy(slen).to(dev),
-        st.carry, st.ev_offset,
+        sig, slen_dev, st.carry, st.ev_offset,
         torch.from_numpy(st.prev_key[:, :p_use].astype(np.int64)).to(dev),
         torch.from_numpy(st.prev_tpos[:, :p_use]).to(dev),
         torch.from_numpy(st.prev_qpos[:, :p_use]).to(dev),
@@ -406,6 +461,22 @@ def _run_chunk(engine: MappingEngine, st: _BatchState) -> None:
         (out.n_anchors, out.rep_len, out.processed, out.overflow, out.ev_offset)
     )
     engine.profiler.add("transfer", time.perf_counter() - t0)
+    if engine._tail_auto and c == 0:
+        # chunk 0 already over the watermark: finish this step's output on
+        # the device tail before any anchor is fetched (the carry is not
+        # committed yet and chunk 0 has no carried anchors, so the step is
+        # the one the device tail would run)
+        wm0 = int(np.quantile(h_nanc + h_over, 0.95))
+        if wm0 > engine.tail_switch_anchors:
+            engine._learned_need = max(engine._learned_need, wm0)
+            if not engine.device_tail:
+                print(f"[rawhash-tpu-torch] chunk-0 anchor watermark {wm0} > "
+                      f"{engine.tail_switch_anchors}: switching to the device "
+                      "tail before the anchor fetch", file=sys.stderr)
+                engine.device_tail = True
+            st.tail = True
+            _run_chunk_tail(engine, st, sig, slen_dev, slen, out)
+            return
     overrides = _quarantine_overflow(engine, st, inputs, h_over)
     # carry commits only now, so the quarantine reran the same inputs
     st.carry = out.carry
@@ -471,6 +542,129 @@ def _run_chunk(engine: MappingEngine, st: _BatchState) -> None:
         # go through the quarantine sub-batch
         wm = int(np.quantile(np.asarray(wms), 0.95))
         engine._learned_need = max(engine._learned_need, wm)
+        if (engine._tail_auto and not engine.device_tail
+                and engine._learned_need > engine.tail_switch_anchors):
+            # the O(anchors) host fetch is now the cost: new batches take
+            # the device tail
+            engine.device_tail = True
+            print(f"[rawhash-tpu-torch] anchor watermark {engine._learned_need} "
+                  f"> {engine.tail_switch_anchors}: switching new batches to "
+                  "the device tail", file=sys.stderr)
+    st.chunk_idx += 1
+
+
+def _fetch(engine: MappingEngine, t: torch.Tensor) -> np.ndarray:
+    """A device tensor on the host, its time booked as transfer."""
+    t0 = time.perf_counter()
+    out = t.cpu().numpy()
+    engine.profiler.add("transfer", time.perf_counter() - t0)
+    return out
+
+
+def _step_tail(engine: MappingEngine, st: _BatchState, sig, slen):
+    """The device-tail chunk step at the batch's a_cap, on the carried
+    anchors the previous chunk left on the device (none for finished reads),
+    up to the fill (as chunk_step_tail runs it)."""
+    if st.prev_dev is None:
+        z = torch.zeros((st.b, 8), dtype=torch.int32, device=engine.device)
+        prev = (z.long() + 0xFFFFFFFF, z, z, z[:, 0])
+    else:
+        key, tpos, qpos, n_prev = st.prev_dev
+        active = torch.from_numpy(st.active).to(engine.device)
+        prev = (key, tpos, qpos, torch.where(active, n_prev, 0))
+    return _step(engine, st, (sig, slen, st.carry, st.ev_offset, *prev), st.a_cap)
+
+
+def _finish_tail(engine: MappingEngine, st: _BatchState, out):
+    """Backtrack and compaction of a chunk step's output at the batch's
+    k_cap and p_cap, and its per-read scalars on the host."""
+    mo = engine.mopt
+    tail = tail_finish(
+        out, span=engine.span, bw=mo.bw, min_cnt=mo.min_num_anchors,
+        min_sc=mo.min_chaining_score, k_cap=st.k_cap, p_out=st.p_cap,
+        prof=engine.profiler,
+    )
+    return tail, _fetch(engine, tail.scalars)
+
+
+def _run_chunk_tail(engine: MappingEngine, st: _BatchState, sig, slen_dev,
+                    slen: np.ndarray, out=None) -> None:
+    """A device-tail chunk: the step (or `out`, a step already run on the
+    same inputs), regrown as a whole batch until no hit, chain or carried
+    anchor is dropped; then regions, MAPQ and the decision per live read
+    from the per-chain summaries (reference: rmap.cpp:415-500, with the
+    backtrack and compaction already done on the device)."""
+    mo = engine.mopt
+    engine.stats["tail_chunks"] += 1
+    if out is None:
+        out = _step_tail(engine, st, sig, slen_dev)
+    tail, h_scal = _finish_tail(engine, st, out)
+    # zero-truncation retry: grow whichever capacity overflowed and re-run
+    # on the same inputs (carry and carried anchors commit only afterwards);
+    # a_cap needs the step again, k_cap and p_cap only the tail
+    cap_ceil = int(mo.max_anchor_cap)
+    while cap_ceil > 0:
+        grew = []
+        for attr, col in (("a_cap", 4), ("k_cap", 6), ("p_cap", 7)):
+            need, cap = int(h_scal[:, col].max()), getattr(st, attr)
+            if need > 0 and cap < cap_ceil:
+                new = 1 << int(np.ceil(np.log2(cap + need)))
+                setattr(st, attr, min(max(new, 2 * cap), cap_ceil))
+                grew.append(attr)
+        if not grew:
+            break
+        engine.stats["anchor_regrows"] += 1
+        if "a_cap" in grew:
+            out = _step_tail(engine, st, sig, slen_dev)
+        tail, h_scal = _finish_tail(engine, st, out)
+    # the next batches start at the converged capacities
+    engine._learned_need = max(engine._learned_need, st.a_cap)
+    engine._learned_kcap = max(engine._learned_kcap, st.k_cap)
+    engine._learned_pcap = max(engine._learned_pcap, st.p_cap)
+    st.carry = tail.carry
+    st.ev_offset = tail.ev_offset
+    st.prev_dev = (tail.prev_key, tail.prev_tpos, tail.prev_qpos, tail.n_prev)
+    act = st.active
+    engine.stats["hit_overflow"] += int(h_scal[act, 4].sum())
+    engine.stats["prev_overflow"] += int(h_scal[act, 7].sum())
+    engine.stats["chain_overflow"] += int(h_scal[act, 6].sum())
+    # the summaries of the live chains only: [B, max n_u, 10]
+    summ = _fetch(engine, tail.summaries[:, : int(h_scal[:, 0].max())])
+
+    t_host = now = time.perf_counter()
+    c = st.chunk_idx
+    span = engine.span
+    sel = (mo.pri_ratio, mo.best_n, True, int(mo.max_target_gap_length * 0.8))
+    par = (mo.mask_level, mo.mask_len, bool(mo.flag & MapFlag.HARD_MLEVEL),
+           mo.alt_drop)
+    for i in range(st.b):
+        if not st.active[i]:
+            continue
+        if slen[i] == 0:
+            st.active[i] = False
+            continue
+        st.c_counts[i] = c
+        if not h_scal[i, 3]:
+            st.last_regs[i] = []
+            continue
+        ev_total = int(h_scal[i, 5])
+        st.ev_totals[i] = ev_total
+        # read hash (reference: rmap.cpp:346-348)
+        h = wang_hash32((wang_hash32(ev_total) + wang_hash32(11)) & 0xFFFFFFFF)
+        rows = summ[i, : int(h_scal[i, 0])]
+        regs = gen_regions_summ_native(h, rows, span, *par, True, *sel)
+        if regs is None:  # no native toolchain: the numpy path
+            regs = gen_regs_from_summaries(h, rows, span)
+            set_parent(regs, *par)
+            regs = select_sub(regs, *sel)
+        st.last_regs[i] = regs
+        set_mapq(regs, mo.min_chaining_score, int(h_scal[i, 1]), False)
+        ids, done = engine._decide(regs)
+        if done:
+            st.map_ids[i] = ids
+            st.t_decided[i] = now
+            st.active[i] = False
+    engine.profiler.add("host_tail", time.perf_counter() - t_host)
     st.chunk_idx += 1
 
 

@@ -1,27 +1,74 @@
 """Index build or load, then mapping to PAF (port of
-rawhash_tpu/map/pipeline.py::run_pipeline, serial: batches of reads, from
-the reference's own reader, are mapped one after another on the calling
-thread)."""
+rawhash_tpu/map/pipeline.py::run_pipeline, serial: batches of reads are
+mapped one after another on the calling thread)."""
 
 from __future__ import annotations
 
 import sys
 import time
 
-from rawhash_tpu.config import IndexFlag
-from rawhash_tpu.index.build import (
-    build_index_from_sequences, build_index_from_signals,
-)
-from rawhash_tpu.index.ref_ind import dump_ref_index, is_ref_index, load_ref_index
-from rawhash_tpu.index.serialize import is_index_file, load_index, save_index
-from rawhash_tpu.io.fasta import read_fasta
-from rawhash_tpu.io.sigfile import find_signal_files, read_signals
-from rawhash_tpu.map.pipeline import _batched_reads
-from rawhash_tpu.pore import load_pore
-from rawhash_tpu.utils.timers import resource_summary
-
+from ..config import IndexFlag
+from ..index.build import build_index_from_sequences, build_index_from_signals
+from ..index.ref_ind import dump_ref_index, is_ref_index, load_ref_index
+from ..index.serialize import is_index_file, load_index, save_index
+from ..io.fasta import read_fasta
 from ..io.paf import write_paf
+from ..io.sigfile import find_signal_files, read_signals
+from ..pore import load_pore
+from ..utils.timers import resource_summary
 from .engine import MappingEngine, unsupported_options
+
+
+def _read_all(path):
+    return list(read_signals(path))
+
+
+def parallel_file_reads(files, n_threads: int):
+    """Decode signal containers with a worker pool (the reference decodes
+    under opt->n_io_threads; rsig.c:192-194, main.cpp:414).  Up to
+    2*n_threads files are in flight; results are yielded strictly in file
+    order so the stream is identical to a 1-thread run.
+
+    Memory trade-off: each in-flight file is fully decoded into memory, so
+    --io-thread changes residency from O(one batch) to O(2*n_threads x file
+    size).  That suits the reference datasets' many-small-files layout
+    (FAST5 dirs at ~4k reads/file); for a few huge BLOW5 files, prefer
+    --io-thread 1 (streaming, O(batch) memory).  Unlike the reference's
+    slow5_init_mt, parallelism here is across files, not within one file, so
+    a single large file sees no decode speedup."""
+    import collections
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=n_threads) as ex:
+        inflight = collections.deque()
+        it = iter(files)
+        for f in it:
+            inflight.append(ex.submit(_read_all, f))
+            if len(inflight) >= 2 * n_threads:
+                break
+        while inflight:
+            yield from inflight.popleft().result()
+            nxt = next(it, None)
+            if nxt is not None:
+                inflight.append(ex.submit(_read_all, nxt))
+
+
+def _batched_reads(paths, batch_size: int, mini_batch_bytes: int,
+                   n_io_threads: int = 1):
+    """Yield lists of (name, signal) with at most batch_size reads."""
+    files = [f for path in paths for f in find_signal_files(path)]
+    if n_io_threads > 1 and len(files) > 1:
+        reads_iter = parallel_file_reads(files, n_io_threads)
+    else:
+        reads_iter = (r for f in files for r in read_signals(f))
+    batch = []
+    for name, sig in reads_iter:
+        batch.append((name, sig))
+        if len(batch) >= batch_size:
+            yield batch
+            batch = []
+    if batch:
+        yield batch
 
 
 def load_or_build_index(args, iopt, log):

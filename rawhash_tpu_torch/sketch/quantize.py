@@ -1,8 +1,10 @@
-"""Dynamic quantisation and the seed hash on tensors (port of the `*_jnp`
-halves of rawhash_tpu/sketch/quantize.py).
+"""Dynamic quantisation and the seed hash, on numpy arrays (the host index
+build) and on tensors (the device sketch); port of
+rawhash_tpu/sketch/quantize.py.
 
-u32 values ride in int64 with explicit 32-bit masks: PyTorch has no shifts
-on uint32 tensors on every device, and int64 holds every u32 exactly.
+u32 values ride in int64 with explicit 32-bit masks on tensors: PyTorch has
+no shifts on uint32 tensors on every device, and int64 holds every u32
+exactly.
 """
 
 from __future__ import annotations
@@ -11,6 +13,49 @@ import numpy as np
 import torch
 
 U32 = 0xFFFFFFFF
+
+
+def dynamic_quantize_np(
+    signal: np.ndarray,
+    fine_min: float,
+    fine_max: float,
+    fine_range: float,
+    n_buckets: int,
+) -> np.ndarray:
+    """Vectorized dynamic quantization (numpy). Returns int32 codes; callers
+    mask with (n_buckets - 1)."""
+    sig = np.asarray(signal, dtype=np.float32)
+    min_val, max_val = np.float32(-3.0), np.float32(3.0)
+    rng = max_val - min_val
+    coarse1 = np.float32((1.0 - fine_range) / 2.0)
+    coarse2 = np.float32(fine_range) + coarse1
+    normalized = (sig - min_val) / rng
+    a = (np.float32(fine_min) - min_val) / rng
+    b = (np.float32(fine_max) - min_val) / rng
+    fine = np.float32(fine_range) * ((normalized - a) / (b - a))
+    coarse = np.where(
+        normalized < 0.5,
+        np.float32(fine_range) + coarse1 * normalized,
+        coarse2 + coarse1 * normalized,
+    )
+    quantized = np.where((sig >= fine_min) & (sig <= fine_max), fine, coarse)
+    scaled = quantized * np.float32(n_buckets - 1)
+    return np.trunc(scaled).astype(np.int64).astype(np.int32)
+
+
+def hash32_np(key: np.ndarray) -> np.ndarray:
+    """32-bit invertible mixing hash (reference: hash64 with mask=(1<<32)-1,
+    src/rsketch.c:7-16).  Input/output uint32."""
+    key = np.asarray(key, dtype=np.uint32)
+    with np.errstate(over="ignore"):
+        key = (~key + (key << np.uint32(21)))
+        key = key ^ (key >> np.uint32(24))
+        key = (key + (key << np.uint32(3))) + (key << np.uint32(8))
+        key = key ^ (key >> np.uint32(14))
+        key = (key + (key << np.uint32(2))) + (key << np.uint32(4))
+        key = key ^ (key >> np.uint32(28))
+        key = key + (key << np.uint32(31))
+    return key
 
 
 def dynamic_quantize(signal: torch.Tensor, fine_min: float, fine_max: float,

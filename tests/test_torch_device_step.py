@@ -8,22 +8,30 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)  # small tensors; xdist workers share the cores
 import jax.numpy as jnp  # noqa: E402
 
+from rawhash_tpu import config as jcfg  # noqa: E402
+from rawhash_tpu.index import build as jbuild  # noqa: E402
 from rawhash_tpu.index.device import DeviceIndex as JaxIndex  # noqa: E402
 from rawhash_tpu.map import device_step as jstep  # noqa: E402
+from rawhash_tpu.pore import synthetic_pore as jax_pore  # noqa: E402
 from rawhash_tpu.signal.events import NormCarry as JaxCarry  # noqa: E402
+from rawhash_tpu_torch.index.build import update_mid_occ  # noqa: E402
 from rawhash_tpu_torch.index.device import DeviceIndex  # noqa: E402
 from rawhash_tpu_torch.map import device_step as tstep  # noqa: E402
 from rawhash_tpu_torch.map.engine import fill_params  # noqa: E402
 from rawhash_tpu_torch.signal.events import NormCarry  # noqa: E402
-from rawhash_tpu_torch.synthetic import deployment  # noqa: E402
+from rawhash_tpu_torch.synthetic import deployment, random_genome  # noqa: E402
 
 
 @pytest.mark.parametrize("preset,p_cap", [("sensitive", 16), ("viral", 8)])
 def test_chunk_step_matches_jax(preset, p_cap):
     index, mopt, reads = deployment(6000, preset, 4, 500, 512, seed=3)
-    from rawhash_tpu.index.build import update_mid_occ
-
     update_mid_occ(mopt, index)
+    # the JAX package indexes the same genome with its own options
+    genome = random_genome(6000, np.random.default_rng(3))
+    jiopt = jcfg.IndexOptions()
+    jcfg.set_preset(preset, jiopt, jcfg.MapOptions())
+    jindex = jbuild.build_index_from_sequences([("chr1", genome)],
+                                               jax_pore(k=6), jiopt)
     io = index.opts
     b, l_chunk, a_cap = 4, 4000, 256
     sig = np.zeros((b, l_chunk), np.float16)
@@ -56,7 +64,7 @@ def test_chunk_step_matches_jax(preset, p_cap):
     pack = np.concatenate([prev_key.view(np.int32), prev_tpos, prev_qpos,
                            n_prev[:, None], slen[:, None]], axis=1)
     jout = jstep.chunk_step(
-        JaxIndex.from_host(index), jnp.asarray(sig),
+        JaxIndex.from_host(jindex), jnp.asarray(sig),
         JaxCarry(*(jnp.asarray(c) for c in carry)), jnp.asarray(ev_offset),
         jnp.asarray(pack), jnp.zeros(b, jnp.int32), jnp.zeros(1, jnp.int32),
         **params, all_vs_all=False, wide=True,

@@ -1,7 +1,9 @@
 """The port end to end on the CPU: its CLI against the reference CLI on the
-same fixture (PAF columns 1-12), capacity growth without truncation, and a
-run that proves the port never imports jax."""
+same fixture (PAF columns 1-12), capacity growth without truncation, index
+files shared by both packages, and proof that the port imports neither jax
+nor the JAX package."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -14,9 +16,12 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)  # small tensors; xdist workers share the cores
 
 from rawhash_tpu import cli as jax_cli  # noqa: E402
-from rawhash_tpu.index.serialize import load_index  # noqa: E402
-from rawhash_tpu.io.sigfile import read_signals  # noqa: E402
+from rawhash_tpu.index import ref_ind as jax_ref_ind  # noqa: E402
+from rawhash_tpu.index import serialize as jax_serialize  # noqa: E402
 from rawhash_tpu_torch import cli as torch_cli  # noqa: E402
+from rawhash_tpu_torch.index import ref_ind, serialize  # noqa: E402
+from rawhash_tpu_torch.index.serialize import load_index  # noqa: E402
+from rawhash_tpu_torch.io.sigfile import read_signals  # noqa: E402
 from rawhash_tpu_torch.map.engine import MappingEngine  # noqa: E402
 from rawhash_tpu_torch.synthetic import options, write_fixture  # noqa: E402
 
@@ -86,18 +91,20 @@ def test_unsupported_modes_are_refused(fixture):
 
 def test_cli_runs_without_jax(fixture):
     """`python -m rawhash_tpu_torch --device cpu` maps the fixture with jax
-    made unimportable, and no jax module is loaded afterwards."""
+    and the JAX package made unimportable, and neither is loaded
+    afterwards."""
     d, _ = fixture
     code = (
         "import sys, runpy\n"
         "sys.modules['jax'] = None  # any import of jax now fails\n"
+        "sys.modules['rawhash_tpu'] = None  # and of the JAX package\n"
         "sys.argv = ['rawhash_tpu_torch'] + sys.argv[1:]\n"
         "try:\n"
         "    runpy.run_module('rawhash_tpu_torch', run_name='__main__')\n"
         "except SystemExit as e:\n"
         "    assert e.code == 0, e.code\n"
-        "loaded = [m for m, v in sys.modules.items()\n"
-        "          if v is not None and (m == 'jax' or m.startswith('jax.'))]\n"
+        "loaded = [m for m, v in sys.modules.items() if v is not None and (\n"
+        "          m in ('jax', 'rawhash_tpu') or m.startswith(('jax.', 'rawhash_tpu.')))]\n"
         "assert not loaded, loaded\n"
         "print('NO_JAX_OK', file=sys.stderr)\n"
     )
@@ -112,3 +119,52 @@ def test_cli_runs_without_jax(fixture):
     lines = [l.split("\t") for l in proc.stdout.splitlines()]
     assert len(lines) == 6 and sum(l[4] in "+-" for l in lines) >= 5
     assert np.all([len(l) >= 13 for l in lines])
+
+
+def _imports(path: Path):
+    """Every module a Python file imports, lazily or not (relative imports
+    resolved against the package)."""
+    rel = path.relative_to(REPO).with_suffix("")
+    pkg = list(rel.parts[:-1])
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            if node.level:
+                base = pkg[: len(pkg) - node.level + 1]
+                yield ".".join(base + ([node.module] if node.module else []))
+            else:
+                yield node.module
+
+
+@pytest.mark.parametrize("where", ["rawhash_tpu_torch", "chip_smoke.py"])
+def test_port_imports_nothing_of_jax_or_the_jax_package(where):
+    files = ([REPO / where] if where.endswith(".py")
+             else sorted((REPO / where).rglob("*.py")))
+    assert len(files) > 10 or where.endswith(".py")
+    bad = [(str(f.relative_to(REPO)), m) for f in files for m in _imports(f)
+           if m.split(".")[0] in ("jax", "jaxlib", "rawhash_tpu")]
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("fmt", ["rhi", "ind"])
+@pytest.mark.parametrize("writer", ["torch", "jax"])
+def test_index_files_interchange(fixture, tmp_path, fmt, writer):
+    """An index written by either package loads in the other, unchanged."""
+    d, _ = fixture
+    src = load_index(str(d / "sensitive.rhi.npz"))
+    path = str(tmp_path / f"x.{'rhi.npz' if fmt == 'rhi' else 'ind'}")
+    if writer == "torch":
+        (serialize.save_index if fmt == "rhi" else ref_ind.dump_ref_index)(path, src)
+        got = (jax_serialize.load_index if fmt == "rhi"
+               else jax_ref_ind.load_ref_index)(path)
+    else:
+        jsrc = jax_serialize.load_index(str(d / "sensitive.rhi.npz"))
+        (jax_serialize.save_index if fmt == "rhi"
+         else jax_ref_ind.dump_ref_index)(path, jsrc)
+        got = (serialize.load_index if fmt == "rhi" else ref_ind.load_ref_index)(path)
+    for name in ("keys", "offsets", "pos", "seq_lens"):
+        np.testing.assert_array_equal(getattr(got, name), getattr(src, name))
+    assert list(got.seq_names) == list(src.seq_names)
+    assert (got.opts.k, got.opts.e, got.opts.q, got.opts.w) == (
+        src.opts.k, src.opts.e, src.opts.q, src.opts.w)

@@ -8,22 +8,32 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)  # small tensors; xdist workers share the cores
 import jax.numpy as jnp  # noqa: E402
 
-from rawhash_tpu.config import IndexOptions, set_preset, MapOptions  # noqa: E402
+from rawhash_tpu import config as jcfg  # noqa: E402
+from rawhash_tpu.index import build as jbuild  # noqa: E402
 from rawhash_tpu.index import device as jidx  # noqa: E402
-from rawhash_tpu.index.build import build_index_from_sequences  # noqa: E402
-from rawhash_tpu.pore import synthetic_pore  # noqa: E402
+from rawhash_tpu.pore import synthetic_pore as jax_pore  # noqa: E402
+from rawhash_tpu_torch.index import build as tbuild  # noqa: E402
 from rawhash_tpu_torch.index import device as tidx  # noqa: E402
+from rawhash_tpu_torch.pore import synthetic_pore  # noqa: E402
+from rawhash_tpu_torch.synthetic import options  # noqa: E402
 
 
 @pytest.fixture(scope="module")
 def tables():
+    """The same genome indexed by each package with its own options: the
+    port's index, the JAX package's device tables, and the port's tables
+    made from those."""
     rng = np.random.default_rng(5)
     genome = "".join(rng.choice(list("ACGT"), size=6000))
-    iopt, mopt = IndexOptions(), MapOptions()
-    set_preset("sensitive", iopt, mopt)
-    index = build_index_from_sequences([("chr1", genome), ("chr2", genome[:900])],
-                                       synthetic_pore(k=6), iopt)
-    jd = jidx.DeviceIndex.from_host(index)
+    records = [("chr1", genome), ("chr2", genome[:900])]
+    index = tbuild.build_index_from_sequences(records, synthetic_pore(k=6),
+                                              options("sensitive")[0])
+    jiopt = jcfg.IndexOptions()
+    jcfg.set_preset("sensitive", jiopt, jcfg.MapOptions())
+    jindex = jbuild.build_index_from_sequences(records, jax_pore(k=6), jiopt)
+    for name in ("keys", "offsets", "pos", "seq_lens"):
+        np.testing.assert_array_equal(getattr(index, name), getattr(jindex, name))
+    jd = jidx.DeviceIndex.from_host(jindex)
     td = tidx.DeviceIndex.from_arrays(
         np.asarray(jd.keys), np.asarray(jd.offsets), np.asarray(jd.pos_id),
         np.asarray(jd.pos_ps), np.asarray(jd.prefix), jd.n_seq,
