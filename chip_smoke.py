@@ -17,40 +17,53 @@ Phases, each printed as one JSON line and each fatal on failure:
                summaries and the carried prefix bit-equal; kernel timed
                (median of 7), the plain version once (on CPU copies)
   4. loops     time the plain stages' stepped loops (_gen_peaks, _diff_filter)
-  5. fixture   the CLI (`python -m rawhash_tpu_torch`) on a small fixture,
+  5. k4        the fill-loop probe (K1's loop skeleton): kernel vs the plain
+               probe bit for bit on a random start at 1000 iterations
+               (64 x 256 at k_ops 2, 20, 60; 200 x 256 at 20), kernel timed
+               (median of 7) and the plain probe once; the kernel against
+               the closed form from INT32_MIN at 100000 iterations; the
+               probe's entry point run with its launch counter set to 0
+               just before and read just after; 200 x 256 (K1's W) timed at
+               100000 iterations; the integer max instructions in the compiled
+               chain at k_ops 2, 20, 60 must grow with k_ops
+  6. fixture   the CLI (`python -m rawhash_tpu_torch`) on a small fixture,
                --device cuda vs --device cpu: same mapped reads, same PAF
                columns 1, 5 and 6, column 8 within 20; and on cuda with
                RAWHASH_TPU_DEVICE_TAIL=1: PAF columns 1-12 of the mapped
                rows equal to the host tail's
-  6. d1        SARS-CoV-2-sized deployment: 30 kb genome, viral preset,
+  7. d1        SARS-CoV-2-sized deployment: 30 kb genome, viral preset,
                5 x 256 reads of 1200 bases; stays on the host tail
-  7. d2        E. coli-sized deployment: 5 Mbp genome, sensitive preset,
+  8. d2        E. coli-sized deployment: 5 Mbp genome, sensitive preset,
                2 x 256 reads of 2500 bases, --max-anchors 16384; switches
                to the device tail
-  8. d4        100 Mbp deployment: genome from seed 13, sensitive preset,
+  9. d4        100 Mbp deployment: genome from seed 13, sensitive preset,
                1 x 256 reads of 3000 bases, default --max-anchors (4096)
                and --max-anchor-cap (2^17); the device tail at backtrack
                widths past 32768
-  9. d4_kernels both kernels on the inputs d4's main path gave them (its
+ 10. d4_kernels both kernels on the inputs d4's main path gave them (its
                widest device-tail call, caught during the run): timed at
                that whole shape (median of 5), and 8 of its rows at full
                width held bit for bit against the plain fill and the plain
                backtrack (all ten outputs, compaction, carried prefix) on
                CPU copies, each plain version timed once
-Phases 5-8 are the main-path run: each resets the kernels' launch counters
+Phases 6-9 are the main-path run: each resets the kernels' launch counters
 just before it and reads them just after; every kernel must have launched
-in it.  Phases 6-8 need >= 95% of reads mapped at accuracy >= 0.95 (strand
+in it.  Phases 7-9 need >= 95% of reads mapped at accuracy >= 0.95 (strand
 right, mapped target interval inside the read's true interval +/- 200).
 The line before the card's line lists every kernel with its launches, error
-and times beside its bound; the last line is {"ok": true, "device": ...}.
+and times beside its bound (rawhash_tpu_torch/profiling/bounds.py: bytes,
+fp32, int32 and conversions each at the H100's own rate, the largest time);
+the last line is {"ok": true, "device": ...}.
 Needs a CUDA device; exits non-zero without one.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
-import subprocess
+import re
 import sys
 import tempfile
 import time
@@ -59,10 +72,11 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
-# H100 SXM peaks (NVIDIA data sheet): device memory bytes/s, and float32 /
-# int32 operations per second on the CUDA cores (no tensor cores here)
-HBM_BYTES_PER_S = 3.35e12
-CUDA_CORE_OPS_PER_S = 67e12
+
+
+def bound_by(row) -> str:
+    """The kernels line's bound_by: "bytes" or "operations"."""
+    return "bytes" if row["bound_class"] == "bytes" else "operations"
 
 
 def emit(obj) -> None:
@@ -76,14 +90,6 @@ class Failed(Exception):
 def check(cond, msg):
     if not cond:
         raise Failed(msg)
-
-
-def nvidia_smi() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0] if out.stdout.strip() else ""
 
 
 def cuda_ms(torch, fn, reps: int) -> float:
@@ -114,15 +120,6 @@ def timed_once(torch, fn):
     return out, s.elapsed_time(e)
 
 
-def bound(nbytes: float, ops: float) -> dict:
-    """The least time the card could take: the larger of the bytes over the
-    memory rate and the operations over the CUDA-core rate."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / CUDA_CORE_OPS_PER_S * 1e3
-    return {"bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-
-
 def spy(mod, name, record):
     """Wrap mod.name so that each call first hands (name, the original, its
     arguments, keyword arguments) to record; returns the original, which
@@ -147,14 +144,22 @@ def clustered_anchors(seed: int, b: int, n: int):
     return key.view(np.int32), tpos, qpos, n_anchors
 
 
-def fill_bound(n_anchors: np.ndarray, n: int, w: int) -> dict:
+def fill_bound(key, tpos, qpos, n_anchors, prm) -> dict:
     """K1's bound from this run's inputs: key/tpos/qpos read for the live
-    anchors, f/p written for all n slots; ~6 integer operations (the band
-    test) for every (anchor, window predecessor) pair."""
-    na = n_anchors.astype(np.float64)
-    pairs = float(np.sum(np.minimum(na, w) * (np.minimum(na, w) - 1) / 2
-                         + np.maximum(na - w, 0) * w))
-    return bound(12 * na.sum() + 4 * na.size + 8 * na.size * n, 6 * pairs)
+    anchors, f/p written for all slots; each anchor's in-band suffix of its
+    window and the one predecessor that ends it pay the band test, and the
+    pairs in band the steps of the score they reach, instruction by
+    instruction from chain_fill.cuh (profiling/bounds.py: fill_work counts
+    the pairs on the card, fill_ops prices them).  The inputs must be
+    sorted by (key, tpos), as the suffix needs."""
+    from rawhash_tpu_torch.profiling.bounds import bound, fill_ops, fill_work
+
+    work = fill_work(key, tpos, qpos, n_anchors, **prm)
+    check(work["unsorted"] == 0,
+          f"k1 bound: {work['unsorted']} in-band pairs past an out-of-band one")
+    b, n = key.shape
+    nbytes = 12.0 * int(n_anchors.sum()) + 4 * b + 8.0 * b * n
+    return {**bound(nbytes, **fill_ops(work)), "work": work}
 
 
 def phase_k1(torch, dev) -> list:
@@ -181,8 +186,7 @@ def phase_k1(torch, dev) -> list:
             ms = cuda_ms(torch, lambda: chain_fill(*args, **prm), 7)
             row = dict(preset=preset, b=b, n=n, w=prm["max_iter"],
                        anchors=int(host[3].sum()), max_abs_err=err,
-                       ms=ms, plain_ms=plain_ms,
-                       **fill_bound(host[3], n, prm["max_iter"]))
+                       ms=ms, plain_ms=plain_ms, **fill_bound(*args, prm))
             emit({"phase": "k1", **row})
             results.append(row)
     return results
@@ -192,13 +196,15 @@ def backtrack_bound(n_anchors, n_u, n_v) -> dict:
     """The backtrack's bound from this run's inputs and outputs: the
     candidate order (f, idx) and f, p, tpos, qpos read for every live anchor
     (24 B), v written for every claimed anchor (4 B), the six chain rows for
-    every kept chain (24 B), and the read's counts (16 B); ~10 integer
+    every kept chain (24 B), and the read's counts (16 B); ~10 int32
     operations per live anchor (a candidate visit, a walk step and a claim
-    step of a few each), far under the bytes."""
+    step of a few each), at the int32 rate."""
+    from rawhash_tpu_torch.profiling.bounds import bound
+
     na, n_u, n_v = (np.asarray(x.cpu() if hasattr(x, "cpu") else x, np.float64)
                     for x in (n_anchors, n_u, n_v))
     return bound(24 * na.sum() + 4 * n_v.sum() + 24 * n_u.sum() + 16 * na.size,
-                 10.0 * na.sum())
+                 int32=10.0 * na.sum())
 
 
 def check_backtrack(torch, label, inputs, key, got, *, bt, k_cap, p_out) -> tuple:
@@ -330,7 +336,7 @@ def phase_d4_kernels(torch, caught, rows: int = 8) -> dict:
         anchors_max=int(na.max()), plain_rows=rows, plain_device="cpu",
         plain_rows_anchors=[int(na[r]) for r in sel],
         fill=dict(ms=fill_ms, plain_ms=fill_plain_ms, max_abs_err=fill_err,
-                  **fill_bound(na, n, prm["max_iter"])),
+                  **fill_bound(*fill_in, prm)),
         backtrack=dict(ms=bt_ms, sort_ms=sort_ms, plain_ms=bt_plain_ms,
                        max_abs_err=bt_err, n_u_max=int(got[2].max()),
                        n_v_max=int(got[4].max()),
@@ -382,6 +388,65 @@ def phase_loops(torch, dev) -> dict:
     for name, (fn, a, k) in caught.items():
         out[f"{name}_ms"] = cuda_ms(torch, lambda: fn(*a, **k), 3)
     emit({"phase": "loops", **out})
+    return out
+
+
+def phase_k4(torch, dev) -> dict:
+    """The fill-loop probe (K4): kernel vs plain probe, the closed form, the
+    probe's entry point with its launch counter, and the SASS check."""
+    from rawhash_tpu_torch.profiling import fill_loop_overhead as flo
+
+    n_check, n_full = 1000, 100_000
+    rng = np.random.default_rng(5)
+    checks = []
+    for w, k_ops in ((64, 2), (64, 20), (64, 60), (200, 20)):
+        x = torch.from_numpy(
+            rng.integers(-2**20, 2**20, (w, flo.B)).astype(np.int32)).to(dev)
+        got = flo.fill_loop_probe(x, n_check, k_ops)  # also the warm-up
+        want, plain_ms = timed_once(
+            torch, lambda: flo.fill_loop_probe_plain(x, n_check, k_ops))
+        err = int((got.long() - want.long()).abs().max())
+        check(torch.equal(got, want), f"k4 {w}x{flo.B} k_ops={k_ops}: kernel "
+              f"disagrees with the plain probe (max abs err {err})")
+        ms = cuda_ms(torch, lambda: flo.fill_loop_probe(x, n_check, k_ops), 7)
+        checks.append(dict(w=w, b=flo.B, n_iter=n_check, k_ops=k_ops,
+                           max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                           **flo.probe_bound(n_check, k_ops, w)))
+    for k_ops in flo.K_OPS:
+        x = torch.full((flo.W, flo.B), flo.INT32_MIN, dtype=torch.int32, device=dev)
+        got = flo.fill_loop_probe(x, n_full, k_ops)
+        check(bool((got == flo.INT32_MIN + k_ops * n_full).all()),
+              f"k4 k_ops={k_ops}: the kernel's ring after {n_full} iterations "
+              "is not INT32_MIN + k_ops * n_iter")
+
+    # the probe's entry point, as a user runs it
+    flo.fill_loop_probe.launches = 0
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = flo.main([str(n_full)])
+    launches = flo.fill_loop_probe.launches
+    lines = buf.getvalue().splitlines()
+    check(rc == 0 and launches > 0,
+          f"k4: the probe's entry point failed ({rc}) or launched nothing")
+    per_iter = []
+    for line in lines:
+        m = re.match(r"k_ops=(\d+): (\S+) us/iter \((\S+) s total\)", line)
+        if m:
+            k_ops = int(m.group(1))
+            per_iter.append(dict(w=flo.W, b=flo.B, n_iter=n_full, k_ops=k_ops,
+                                 us_per_iter=float(m.group(2)),
+                                 ms=float(m.group(3)) * 1e3,
+                                 **flo.probe_bound(n_full, k_ops)))
+    check(len(per_iter) == len(flo.K_OPS), f"k4: unexpected output {lines}")
+    per_iter += [flo.time_probe(n_full, k_ops, w=200) for k_ops in flo.K_OPS]
+
+    sass = flo.sass_max_counts()
+    fixed = [sass[f"k_ops={k}"] for k in flo.K_OPS]
+    check(fixed == sorted(set(fixed)),
+          f"k4: the compiled chain's max count does not grow with k_ops: {sass}")
+    out = dict(checks=checks, per_iter=per_iter, entry_point_output=lines,
+               launches=launches, sass_max=sass)
+    emit({"phase": "k4", **out})
     return out
 
 
@@ -542,6 +607,8 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
+    from rawhash_tpu_torch.profiling.fill_loop_overhead import card as nvidia_smi
+
     dev = torch.device("cuda")
     card = nvidia_smi()
     t_all = time.perf_counter()
@@ -551,19 +618,21 @@ def main() -> int:
         from rawhash_tpu_torch import _build
         from rawhash_tpu_torch.chain.backtrack import chain_backtrack
         from rawhash_tpu_torch.chain.fill import chain_fill
+        from rawhash_tpu_torch.profiling.bounds import sm_clock
 
         t0 = time.perf_counter()
         so = _build.build()
         _build.load_library()
         log = so.with_suffix(".log")
         emit({"phase": "build", "seconds": time.perf_counter() - t0,
-              "library": so.name,
+              "library": so.name, "sm_clock_hz": sm_clock()[0],
+              "sm_clock_from": sm_clock()[1],
               "ptxas": [l for l in (log.read_text().splitlines() if log.exists() else [])
                         if "registers" in l or "spill" in l or "Function properties" in l]})
 
         timed = {}
         for name, fn in (("k1", phase_k1), ("backtrack", phase_backtrack),
-                         ("loops", phase_loops)):
+                         ("loops", phase_loops), ("k4", phase_k4)):
             t0 = time.perf_counter()
             timed[name] = fn(torch, dev)
             emit({"phase": f"{name}_done", "seconds": time.perf_counter() - t0})
@@ -613,7 +682,7 @@ def main() -> int:
             "max_abs_err": max(r["max_abs_err"]
                                for r in k1 + [timed["d4_kernels"]["fill"]]),
             "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
-            "bound_ms": main_shape["bound_ms"], "bound_by": main_shape["bound_by"],
+            "bound_ms": main_shape["bound_ms"], "bound_by": bound_by(main_shape),
             "library_ms": None,
         }]
         # one kernel for both TPU kernels: K2's row at the D2 regime
@@ -630,9 +699,21 @@ def main() -> int:
                 "launches": launches["chain_backtrack"],
                 "max_abs_err": max(r["max_abs_err"] for r in bt + [d4k]),
                 "ms": shape["ms"], "plain_ms": shape["plain_ms"],
-                "bound_ms": shape["bound_ms"], "bound_by": shape["bound_by"],
+                "bound_ms": shape["bound_ms"], "bound_by": bound_by(shape),
                 "library_ms": None,
             })
+        k4 = timed["k4"]
+        k4_row = next(c for c in k4["checks"] if c["w"] == 64 and c["k_ops"] == 20)
+        kernels.append({
+            "name": "fill_loop_probe", "route": "cuda",
+            "source": "rawhash_tpu_torch/csrc/fill_loop_probe.cu",
+            "replaces": "tools/profiling/fill_loop_overhead.py:33",
+            "launches": k4["launches"],
+            "max_abs_err": max(c["max_abs_err"] for c in k4["checks"]),
+            "ms": k4_row["ms"], "plain_ms": k4_row["plain_ms"],
+            "bound_ms": k4_row["bound_ms"], "bound_by": bound_by(k4_row),
+            "library_ms": None,
+        })
         emit({"kernels": kernels,
               **{f"{c}_bp_per_s": runs[c][0]["bp_per_s"] for c in cells},
               "seconds": time.perf_counter() - t_all})

@@ -1,0 +1,134 @@
+"""The least time an NVIDIA H100 SXM could take for a kernel's work: the
+bound that `chip_smoke.py` and the fill-loop probe put beside each time.
+
+Each class of work is priced at its own rate and the bound is the largest
+of the times:
+
+- device-memory bytes at 3.35 TB/s (NVIDIA H100 SXM data sheet);
+- per SM and clock on compute capability 9.0 (NVIDIA's CUDA C++
+  documentation, the arithmetic-instruction throughput table): 128 fp32
+  adds or multiplies (the kernels build with --fmad=false, so each is one
+  instruction), 64 int32 adds, mins, maxes, compares or logical
+  operations, 16 type conversions (Hopper's I2FP int->float conversion is
+  taken at that rate too);
+- over 132 SMs, at the SM clock nvidia-smi reports as clocks.max.sm, or at
+  the data sheet's 1980 MHz boost where that cannot be read (`sm_clock`
+  says which).
+
+The work is counted from the inputs of the call, not the most they could
+need: `fill_work` counts the (anchor, predecessor) pairs K1's function
+needs, by how far the per-slot score takes each.
+"""
+
+from __future__ import annotations
+
+import functools
+import subprocess
+
+import torch
+
+HBM_BYTES_PER_S = 3.35e12
+SMS = 132
+PER_SM_PER_CLOCK = {"fp32": 128, "int32": 64, "cvt": 16}
+BOOST_HZ = 1.98e9
+
+
+@functools.cache
+def sm_clock() -> tuple[float, str]:
+    """(SM clock in Hz, where it came from)."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"],
+            capture_output=True, text=True, timeout=60,
+        )
+        return float(out.stdout.split()[0]) * 1e6, "nvidia-smi clocks.max.sm"
+    except (OSError, subprocess.SubprocessError, ValueError, IndexError):
+        return BOOST_HZ, "data sheet boost clock"
+
+
+def bound(nbytes: float, **ops: float) -> dict:
+    """The largest of the bytes over the memory rate and each class of
+    operations (`fp32=`, `int32=`, `cvt=` counts) over its own rate:
+    {bound_ms, bound_class ("bytes" or the class of operations)}."""
+    hz = sm_clock()[0]
+    ms = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3}
+    for cls, n in ops.items():
+        ms[cls] = n / (SMS * PER_SM_PER_CLOCK[cls] * hz) * 1e3
+    by = max(ms, key=ms.get)
+    return {"bound_ms": ms[by], "bound_class": by}
+
+
+# K1's instructions for one (anchor, window predecessor) pair, by how far
+# rh_slot (csrc/chain_fill.cuh) takes the pair, as nvcc 12.8 compiles the
+# slot loop of csrc/chain_fill.cu for sm_90a (a compare and the logical
+# operation joining it are one ISETP; --fmad=false keeps every fp32 multiply
+# and add apart).  Left out, so the bound stays a lower one: the ring slot's
+# anchor index (a modulo), the shared-memory loads, the loop, the (total, j)
+# maximum of pairs that score nothing, and the per-anchor step.
+FILL_COST = {
+    # every tested pair: dr and the band test (rh_slot :86-87)
+    "tested": {"int32": 5},
+    # in band: dq, the early-out tests, |dr - dq| and dd > bw (:89-93), and
+    # the kernel's in-band count and (f, j) maximum (.cu :102-106)
+    "in_band": {"int32": 13},
+    # scored: min(dr, dq), min(dg, q_span), the penalty test (rh_score
+    # :68-69), the total (:94) and its (total, j) maximum (.cu :100-101)
+    "scored": {"int32": 10},
+    # penalised (dd != 0 or dg > q_span): dd >= 1, two int->float
+    # conversions, the linear penalty, the sum, the truncation, sc -= (:70-73)
+    "penalised": {"int32": 2, "fp32": 4, "cvt": 3},
+    # logged (dd >= 1): dd + 1, its conversion, rh_mg_log2 (:57-63) and the
+    # halving
+    "logged": {"int32": 6, "fp32": 6, "cvt": 2},
+}
+
+
+def fill_work(key, tpos, qpos, n_anchors, *, q_span, max_dist_t, max_dist_q,
+              bw, max_iter, **_) -> dict:
+    """Counts of the (anchor i, predecessor j) pairs, i < n_anchors,
+    i - max_iter <= j < i, j >= 0, that K1's function needs on these inputs,
+    by the furthest step of rh_slot each reaches.
+
+    Anchors come sorted by (key, tpos), so the predecessors in band (same
+    key, 0 <= dr <= max_dist_t) are a suffix of each window: the function
+    needs the band test only on that suffix and on the one predecessor past
+    it that ends the scan (minimap2's lchain moves its `st` so).  `tested`
+    counts those, `in_band` and the later steps the pairs in band;
+    `unsorted` counts pairs in band past a pair out of band, which sorted
+    inputs never have (the counts are then no bound).  Counted with tensor
+    operations on the inputs' device, one window offset at a time.  The
+    distance limits are clamped to >= bw, as chain_fill passes them to the
+    kernel."""
+    mdt, mdq = max(max_dist_t, bw), max(max_dist_q, bw)
+    b, n = key.shape
+    live = torch.arange(n, device=key.device)[None, :] < n_anchors[:, None]
+    run = live.clone()  # anchor i's window in band at every offset so far
+    counts = {k: torch.zeros((), dtype=torch.int64, device=key.device)
+              for k in (*FILL_COST, "unsorted")}
+    for d in range(1, min(max_iter, n - 1) + 1):
+        on = run[:, d:]
+        dr = tpos[:, d:] - tpos[:, :-d]
+        dq = qpos[:, d:] - qpos[:, :-d]
+        in_band = (live[:, d:] & (key[:, d:] == key[:, :-d]) & (dr >= 0)
+                   & (dr <= mdt))
+        dd = (dr - dq).abs()
+        scored = (in_band & (dq > 0) & (dq <= mdq) & (dr != 0) & (dr <= mdq)
+                  & (dd <= bw))
+        penalised = scored & ((dd != 0) | (torch.minimum(dr, dq) > q_span))
+        for name, mask in (("tested", on), ("unsorted", in_band & ~on),
+                           ("in_band", in_band), ("scored", scored),
+                           ("penalised", penalised),
+                           ("logged", scored & (dd != 0))):
+            counts[name] = counts[name] + mask.sum()
+        run[:, d:] = on & in_band
+    return {k: int(v) for k, v in counts.items()}
+
+
+def fill_ops(work: dict) -> dict:
+    """Operations by class for K1's pair counts (`fill_work`)."""
+    ops = {"int32": 0.0, "fp32": 0.0, "cvt": 0.0}
+    for step, cost in FILL_COST.items():
+        for cls, per in cost.items():
+            ops[cls] += per * work[step]
+    return ops

@@ -17,6 +17,9 @@ from rawhash_tpu_torch.chain.backtrack_device import backtrack_plain  # noqa: E4
 from rawhash_tpu_torch.chain.device import chain_fill_batch  # noqa: E402
 from rawhash_tpu_torch.chain.fill import chain_fill  # noqa: E402
 from rawhash_tpu_torch.map.engine import fill_params  # noqa: E402
+from rawhash_tpu_torch.profiling.fill_loop_overhead import (  # noqa: E402
+    INT32_MIN, MAX_W, fill_loop_probe, fill_loop_probe_plain,
+)
 from rawhash_tpu_torch.synthetic import options, random_chains  # noqa: E402
 
 
@@ -86,3 +89,30 @@ def test_chain_backtrack_rejects_wrong_dtype_or_device(cuda_device):
         chain_backtrack(f, p.cpu(), n_anchors, tpos, qpos, **BT, k_cap=8)
     with pytest.raises(ValueError):
         chain_backtrack(f, p, n_anchors, tpos, qpos, **BT, k_cap=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k_ops", [2, 60])
+@pytest.mark.parametrize("w", [64, 200])
+def test_fill_loop_probe_kernel_matches_plain(cuda_device, w, k_ops):
+    x = torch.from_numpy(np.random.default_rng(w + k_ops).integers(
+        -2**20, 2**20, (w, 256)).astype(np.int32)).to(cuda_device)
+    before = fill_loop_probe.launches
+    got = fill_loop_probe(x, 1000, k_ops)
+    want = fill_loop_probe_plain(x, 1000, k_ops)
+    torch.cuda.synchronize()
+    assert fill_loop_probe.launches == before + 1
+    assert torch.equal(got, want)
+    start = torch.full_like(x, INT32_MIN)
+    assert torch.equal(fill_loop_probe(start, 1000, k_ops),
+                       torch.full_like(x, INT32_MIN + 1000 * k_ops))
+
+
+@pytest.mark.cuda
+def test_fill_loop_probe_rejects_wrong_input(cuda_device):
+    for bad in (torch.zeros((64, 256), dtype=torch.int64, device=cuda_device),
+                torch.zeros((256, 64), dtype=torch.int32, device=cuda_device).t(),
+                torch.zeros(64, dtype=torch.int32, device=cuda_device),
+                torch.zeros((MAX_W + 1, 2), dtype=torch.int32, device=cuda_device)):
+        with pytest.raises(ValueError):
+            fill_loop_probe(bad, 10, 2)
