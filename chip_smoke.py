@@ -8,8 +8,9 @@ Phases, each printed as one JSON line and each fatal on failure:
                process per source, in parallel
   2. k1        chain_fill kernel vs the plain PyTorch fill on the card
                (B=256, N in {4096, 16384}, W=200, viral and sensitive
-               parameters): f and p must be bit-equal; kernel timed (median
-               of 7), the plain fill timed once
+               parameters, rows sorted by (key, tpos)): f and p must be
+               bit-equal; kernel timed (median of 7), the plain fill timed
+               once; each line carries its input's chain segments
   3. backtrack chain_backtrack kernel vs its plain version on f/p from K1
                (sensitive): B=256 N=16384 (the D2 regime), B=32 N=40960
                (past 32768, the K3 regime), B=64 N=4096 with k_cap 4
@@ -45,7 +46,14 @@ Phases, each printed as one JSON line and each fatal on failure:
                that whole shape (median of 5), and 8 of its rows at full
                width held bit for bit against the plain fill and the plain
                backtrack (all ten outputs, compaction, carried prefix) on
-               CPU copies, each plain version timed once
+               CPU copies, each plain version timed once; with the fill
+               input's chain segments
+ 11. fill_warps K1 at 4, 8 and 16 warps a read on the main path's own fill
+               inputs (the widest fill call of d1, d2 and d4, caught during
+               their runs) and on k1's sensitive 256 x 16384 input: each
+               bit-equal to chain_fill's f/p, then timed in turns (median
+               of 5, forward and reverse order, twice); with each input's
+               chain segments
 Phases 6-9 are the main-path run: each resets the kernels' launch counters
 just before it and reads them just after; every kernel must have launched
 in it.  Phases 7-9 need >= 95% of reads mapped at accuracy >= 0.95 (strand
@@ -133,17 +141,6 @@ def spy(mod, name, record):
     return fn
 
 
-def clustered_anchors(seed: int, b: int, n: int):
-    """Sorted anchors along one diagonal per strand, from a numpy seed:
-    (key bits, tpos, qpos, n_anchors), the k1 and backtrack inputs."""
-    rng = np.random.default_rng(seed)
-    tpos = np.sort(rng.integers(0, 4 * n, (b, n)), axis=1).astype(np.int32)
-    qpos = (tpos // 2 + rng.integers(-20, 20, (b, n))).clip(0).astype(np.int32)
-    key = np.sort(rng.integers(0, 2, (b, n)).astype(np.uint32) << 31, axis=1)
-    n_anchors = rng.integers(n // 2, n + 1, b).astype(np.int32)
-    return key.view(np.int32), tpos, qpos, n_anchors
-
-
 def fill_bound(key, tpos, qpos, n_anchors, prm) -> dict:
     """K1's bound from this run's inputs: key/tpos/qpos read for the live
     anchors, f/p written for all slots; each anchor's in-band suffix of its
@@ -151,15 +148,20 @@ def fill_bound(key, tpos, qpos, n_anchors, prm) -> dict:
     pairs in band the steps of the score they reach, instruction by
     instruction from chain_fill.cuh (profiling/bounds.py: fill_work counts
     the pairs on the card, fill_ops prices them).  The inputs must be
-    sorted by (key, tpos), as the suffix needs."""
-    from rawhash_tpu_torch.profiling.bounds import bound, fill_ops, fill_work
+    sorted by (key, tpos), as the kernel and the suffix need: fails on any
+    in-band pair past an out-of-band one.  Also the input's chain segments
+    (fill_segments)."""
+    from rawhash_tpu_torch.profiling.bounds import (
+        bound, fill_ops, fill_segments, fill_work,
+    )
 
     work = fill_work(key, tpos, qpos, n_anchors, **prm)
     check(work["unsorted"] == 0,
-          f"k1 bound: {work['unsorted']} in-band pairs past an out-of-band one")
+          f"k1 input: {work['unsorted']} in-band pairs past an out-of-band one")
     b, n = key.shape
     nbytes = 12.0 * int(n_anchors.sum()) + 4 * b + 8.0 * b * n
-    return {**bound(nbytes, **fill_ops(work)), "work": work}
+    return {**bound(nbytes, **fill_ops(work)), "work": work,
+            "segments": fill_segments(key, tpos, n_anchors, **prm)}
 
 
 def phase_k1(torch, dev) -> list:
@@ -167,7 +169,7 @@ def phase_k1(torch, dev) -> list:
     from rawhash_tpu_torch.chain.device import chain_fill_batch
     from rawhash_tpu_torch.chain.fill import chain_fill
     from rawhash_tpu_torch.map.engine import fill_params
-    from rawhash_tpu_torch.synthetic import options
+    from rawhash_tpu_torch.synthetic import clustered_anchors, options
 
     results = []
     for preset in ("viral", "sensitive"):
@@ -258,7 +260,7 @@ def phase_backtrack(torch, dev) -> list:
     from rawhash_tpu_torch.chain.backtrack import candidates, chain_backtrack
     from rawhash_tpu_torch.chain.fill import chain_fill
     from rawhash_tpu_torch.map.engine import fill_params
-    from rawhash_tpu_torch.synthetic import options
+    from rawhash_tpu_torch.synthetic import clustered_anchors, options
 
     io, mo = options("sensitive")
     prm = fill_params(io, mo)
@@ -345,6 +347,70 @@ def phase_d4_kernels(torch, caught, rows: int = 8) -> dict:
     )
     emit({"phase": "d4_kernels", **res})
     return res
+
+
+WARPS = (4, 8, 16)
+
+
+def phase_fill_warps(torch, dev, fills) -> list:
+    """K1 at each of WARPS warps a read (csrc/chain_fill.cu: kWarps is the
+    most, and what chain_fill launches) on the main path's own fill inputs
+    `fills` ({cell: (its widest fill call's tensors, keyword arguments)})
+    and on k1's clustered sensitive 256 x 16384 input.  Each warp count is
+    bit-equal to chain_fill's f/p, then timed in turns."""
+    import ctypes
+
+    from rawhash_tpu_torch._build import load_library
+    from rawhash_tpu_torch.chain.fill import chain_fill
+    from rawhash_tpu_torch.map.engine import fill_params
+    from rawhash_tpu_torch.profiling.bounds import fill_segments, fill_work
+    from rawhash_tpu_torch.signal.events import f32
+    from rawhash_tpu_torch.synthetic import clustered_anchors, options
+
+    fn = load_library().rh_chain_fill_warps
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+                   + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
+
+    def fill_at(warps, key, tpos, qpos, n_anchors, *, q_span, max_dist_t,
+                max_dist_q, bw, max_iter, chn_pen_gap, chn_pen_skip):
+        """chain_fill's launch at `warps` warps a read."""
+        f, p = torch.empty_like(key), torch.empty_like(key)
+        rc = fn(key.data_ptr(), tpos.data_ptr(), qpos.data_ptr(),
+                n_anchors.data_ptr(), f.data_ptr(), p.data_ptr(), *key.shape,
+                max_iter, q_span, max(max_dist_t, bw), max(max_dist_q, bw), bw,
+                f32(chn_pen_gap), f32(chn_pen_skip), warps,
+                torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"fill_warps: launch at {warps} warps: CUDA error {rc}")
+        return f, p
+
+    inputs = dict(fills)
+    inputs["k1_sensitive_16384"] = (
+        [torch.from_numpy(x).to(dev) for x in clustered_anchors(16384, 256, 16384)],
+        fill_params(*options("sensitive")))
+    results = []
+    for name, (args, prm) in inputs.items():
+        check(fill_work(*args, **prm)["unsorted"] == 0,
+              f"fill_warps {name}: in-band pairs past an out-of-band one")
+        want = chain_fill(*args, **prm)
+        for w in WARPS:  # also each timing's warm-up
+            got = fill_at(w, *args, **prm)
+            check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                  f"fill_warps {name}: {w} warps disagree with chain_fill")
+        ms = {w: [] for w in WARPS}
+        for order in (WARPS, WARPS[::-1]) * 2:
+            for w in order:
+                ms[w].append(cuda_ms(torch, lambda: fill_at(w, *args, **prm), 5))
+        med = {w: float(np.median(v)) for w, v in ms.items()}
+        row = dict(input=name, b=args[0].shape[0], n=args[0].shape[1],
+                   w=prm["max_iter"], anchors=int(args[3].sum()),
+                   segments=fill_segments(args[0], args[1], args[3], **prm),
+                   ms={str(w): v for w, v in ms.items()},
+                   median_ms={str(w): v for w, v in med.items()},
+                   fastest=min(med, key=med.get))
+        emit({"phase": "fill_warps", **row})
+        results.append(row)
+    return results
 
 
 def phase_loops(torch, dev) -> dict:
@@ -506,12 +572,14 @@ def phase_fixture(d: Path) -> dict:
 
 
 def phase_deployment(torch, dev, name, genome_len, preset, n_batches,
-                     read_len, max_anchors, seed, caught=None) -> dict:
+                     read_len, max_anchors, seed, caught) -> dict:
     """Build the index and map n_batches x 256 simulated reads on the card
-    through the engine's streaming entry point.  With a dict `caught`, the
-    widest device-tail call of the run (its ChunkOut `out`, `k_cap` and
-    `p_out`) is kept there."""
+    through the engine's streaming entry point.  The run's widest fill call
+    (copies of its tensors, its keyword arguments) is kept in
+    caught["fill"], and its widest device-tail call (its ChunkOut `out`,
+    `k_cap` and `p_out`) in caught["tail"]."""
     from rawhash_tpu_torch.chain.backtrack import chain_backtrack
+    from rawhash_tpu_torch.map import device_step
     from rawhash_tpu_torch.map import engine as eng_mod
     from rawhash_tpu_torch.synthetic import deployment
 
@@ -524,19 +592,24 @@ def phase_deployment(torch, dev, name, genome_len, preset, n_batches,
                for i in range(0, len(reads), 256)]
     engine = eng_mod.MappingEngine(index, mopt, device=dev)
 
-    def widest(_, fn, a, k):
-        if "out" not in caught or a[0].f.shape[1] >= caught["out"].f.shape[1]:
-            caught.update(out=a[0], k_cap=k["k_cap"], p_out=k["p_out"])
+    def widest_fill(_, fn, a, k):
+        if "fill" not in caught or a[0].shape[1] >= caught["fill"][0][0].shape[1]:
+            caught["fill"] = ([t.clone() for t in a], dict(k))
 
-    original = spy(eng_mod, "tail_finish", widest) if caught is not None else None
+    def widest_tail(_, fn, a, k):
+        if "tail" not in caught or a[0].f.shape[1] >= caught["tail"]["out"].f.shape[1]:
+            caught["tail"] = dict(out=a[0], k_cap=k["k_cap"], p_out=k["p_out"])
+
+    originals = {(device_step, "chain_fill"): spy(device_step, "chain_fill", widest_fill),
+                 (eng_mod, "tail_finish"): spy(eng_mod, "tail_finish", widest_tail)}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     try:
         results = [r for batch in engine.map_stream(batches) for r in batch]
     finally:
-        if original is not None:
-            eng_mod.tail_finish = original
+        for (mod, attr), fn in originals.items():
+            setattr(mod, attr, fn)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
 
@@ -642,21 +715,26 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as tmp:
             runs["fixture"] = main_path(
                 "fixture", lambda: phase_fixture(Path(tmp)), counters)
-        caught = {}  # D4's widest device-tail call, for phase_d4_kernels
         cells = {
-            "d1": (30_000, "viral", 5, 1200, 3072, 7, None),
-            "d2": (5_000_000, "sensitive", 2, 2500, 16384, 11, None),
-            "d4": (100_000_000, "sensitive", 1, 3000, 4096, 13, caught),
+            "d1": (30_000, "viral", 5, 1200, 3072, 7),
+            "d2": (5_000_000, "sensitive", 2, 2500, 16384, 11),
+            "d4": (100_000_000, "sensitive", 1, 3000, 4096, 13),
         }
+        caught = {c: {} for c in cells}  # each cell's widest fill/tail calls
         for name, cell in cells.items():
             runs[name] = main_path(
-                name, lambda: phase_deployment(torch, dev, name, *cell), counters)
+                name, lambda: phase_deployment(torch, dev, name, *cell,
+                                               caught[name]), counters)
         (d1, n1), (d2, n2), (d4, n4) = (runs[c] for c in cells)
-        check("out" in caught, "d4: no device-tail call to check the kernels on")
+        check("tail" in caught["d4"], "d4: no device-tail call to check the kernels on")
         t0 = time.perf_counter()
-        timed["d4_kernels"] = phase_d4_kernels(torch, caught)
-        caught.clear()
+        timed["d4_kernels"] = phase_d4_kernels(torch, caught["d4"].pop("tail"))
         emit({"phase": "d4_kernels_done", "seconds": time.perf_counter() - t0})
+        t0 = time.perf_counter()
+        timed["fill_warps"] = phase_fill_warps(
+            torch, dev, {c: caught[c].pop("fill") for c in cells})
+        caught.clear()
+        emit({"phase": "fill_warps_done", "seconds": time.perf_counter() - t0})
         check(not d1["device_tail"] and d1["device_tail_chunks"] == 0,
               "d1: the viral cell left the host tail")
         check(d2["device_tail"] and d2["device_tail_chunks"] > 0,
@@ -674,6 +752,7 @@ def main() -> int:
 
         k1 = timed["k1"]
         main_shape = next(r for r in k1 if r["preset"] == "sensitive" and r["n"] == 16384)
+        d4f = timed["d4_kernels"]["fill"]
         kernels = [{
             "name": "chain_fill", "route": "cuda",
             "source": "rawhash_tpu_torch/csrc/chain_fill.cu",
@@ -684,6 +763,8 @@ def main() -> int:
             "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
             "bound_ms": main_shape["bound_ms"], "bound_by": bound_by(main_shape),
             "library_ms": None,
+            # the same kernel at D4's main-path inputs (plain: its held rows)
+            "d4": {k: d4f[k] for k in ("ms", "plain_ms", "bound_ms", "segments")},
         }]
         # one kernel for both TPU kernels: K2's row at the D2 regime
         # (B=256, N=16384); K3's at D4's main-path inputs past 32768 (the

@@ -2,8 +2,10 @@
 
 `chain_fill` replaces rawhash_tpu/chain/pallas_fill.py::chain_fill_pallas.
 On CPU tensors it runs the plain PyTorch fill (chain/device.py); on CUDA
-tensors it launches csrc/chain_fill.cu (one warp per read, the predecessor
-ring in shared memory) or raises.  Both give the same f and p bit for bit.
+tensors it launches csrc/chain_fill.cu (a block of warps per read, each
+warp filling its own chain segments through their in-band suffixes) or
+raises.  Both give the same f and p bit for bit on rows sorted by
+(unsigned key, tpos), which the kernel needs and does not check.
 """
 
 from __future__ import annotations
@@ -16,8 +18,10 @@ from .._build import load_library
 from ..signal.events import f32
 from .device import chain_fill_batch
 
-# a block holds the ring (16 bytes per slot) in at most 227 KB of shared memory
-MAX_ITER_CAP = 232448 // 16
+# a block runs as many warps a read as their rings (W + 64 slots of 16 bytes
+# each: csrc/chain_fill.cuh, rh_fill_warps) fit in its 227 KB of shared
+# memory, up to 16; past this W not one ring fits
+MAX_ITER_CAP = 232448 // 16 - 64
 
 _FN = None
 
@@ -49,8 +53,13 @@ def chain_fill(
     chn_pen_gap: float,
     chn_pen_skip: float,
 ):
-    """f, p (i32 [B, N]) of the chaining DP over sorted anchors; slots past
-    n_anchors get f = 0, p = -1."""
+    """f, p (i32 [B, N]) of the chaining DP; slots past n_anchors get
+    f = 0, p = -1.  Each row's live anchors must be sorted by (unsigned key,
+    tpos), as merge_sort_fill sorts them: the CUDA kernel fills each row's
+    chain segments apart and scans only each anchor's in-band suffix, which
+    is the full-window fill only on sorted rows.  It does not check the
+    order (that would cost a sync); the plain fill on CPU tensors needs no
+    order.  On the card max_iter is at most MAX_ITER_CAP."""
     params = dict(
         q_span=q_span, max_dist_t=max_dist_t, max_dist_q=max_dist_q, bw=bw,
         max_iter=max_iter, chn_pen_gap=chn_pen_gap, chn_pen_skip=chn_pen_skip,

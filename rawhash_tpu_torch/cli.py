@@ -283,6 +283,14 @@ def main(argv=None) -> int:
     if args.device == "cuda" and args.query:
         import torch
 
+        from .chain.fill import MAX_ITER_CAP
+
+        if not 1 <= mo.max_chain_iter <= MAX_ITER_CAP:
+            print(f"[ERROR] --device cuda: --max-iterations must be in "
+                  f"[1, {MAX_ITER_CAP}] (the fill kernel's shared memory)",
+                  file=sys.stderr)
+            return 1
+
         if not torch.cuda.is_available():
             print("[ERROR] --device cuda: no CUDA device is available "
                   "(use --device cpu)", file=sys.stderr)

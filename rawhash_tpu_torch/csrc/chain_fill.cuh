@@ -7,6 +7,13 @@
 // best total (ties to the largest j), then consider the banded
 // out-of-window predecessor max_ii.
 //
+// Precondition of the segment fill (rh_segment_start, rh_fill_segment and
+// the kernel): each row's live anchors are sorted by (unsigned key, tpos),
+// as map/device_step.py::merge_sort_fill sorts them.  Then the predecessors
+// in band of anchor i are a suffix of its window, and a row splits into
+// segments that are DPs of their own.  rh_fill_read, the full-window order,
+// needs no sorting and is the reference the segment fill must equal.
+//
 // Without nvcc the header compiles as plain C++ (g++ -ffp-contract=off), so
 // the CPU tests can hold this exact code against the plain PyTorch fill.
 // Every float operation here must round separately: build the CUDA side
@@ -63,15 +70,31 @@ RH_HD float rh_mg_log2(float x) {
 }
 
 // score of a predecessor step with distances dd = |dr - dq|, dg = min(dr, dq)
-// (compute_score, lchain.c:297-356); the penalty truncates toward zero
+// (compute_score, lchain.c:297-356); the penalty truncates toward zero.
+// Computed without branches (the penalty is selected, not skipped), so the
+// lanes of a warp run it in lockstep; dd and dg must be small enough for the
+// float conversions to be defined (the callers pass dd <= bw, dg <= max_dist_q).
 RH_HD int rh_score(int dd, int dg, const RhParams& P) {
-  int sc = dg < P.q_span ? dg : P.q_span;
-  if (dd != 0 || dg > P.q_span) {
-    float lin = P.pen_gap * (float)dd + P.pen_skip * (float)dg;
-    float log_pen = dd >= 1 ? rh_mg_log2((float)(dd + 1)) : 0.0f;
-    sc -= (int)(lin + 0.5f * log_pen);
-  }
-  return sc;
+  const int sc = dg < P.q_span ? dg : P.q_span;
+  const float lin = P.pen_gap * (float)dd + P.pen_skip * (float)dg;
+  const float lg = rh_mg_log2((float)(dd + 1));
+  const float log_pen = dd >= 1 ? lg : 0.0f;
+  const int pen = (int)(lin + 0.5f * log_pen);
+  return (dd != 0) | (dg > P.q_span) ? sc - pen : sc;
+}
+
+// total score + f of predecessor (rk, rt, rq, rf) for anchor (k_i, t_i, q_i),
+// or RH_INT32_MIN if it is not an allowed predecessor; without branches.  A
+// pair that is not allowed is scored at distances 0 and its score dropped.
+RH_HD int rh_pair_total(int k_i, int t_i, int q_i, int rk, int rt, int rq,
+                        int rf, const RhParams& P) {
+  const int dr = rh_sub(t_i, rt), dq = rh_sub(q_i, rq);
+  const int diff = rh_sub(dr, dq);
+  const int dd = diff < 0 ? rh_sub(0, diff) : diff;
+  const int ok = (rk == k_i) & (dr > 0) & (dr <= P.max_dist_t) & (dq > 0) &
+                 (dq <= P.max_dist_q) & (dr <= P.max_dist_q) & (dd <= P.bw);
+  const int sc = rh_score(ok ? dd : 0, ok ? (dr < dq ? dr : dq) : 0, P);
+  return ok ? rh_add(sc, rf) : RH_INT32_MIN;
 }
 
 struct RhSlot {
@@ -79,19 +102,19 @@ struct RhSlot {
   int in_band;  // same target, 0 <= dr <= max_dist_t (counts toward the band)
 };
 
+// predecessor (k_j, t_j) is in the band of anchor (k_i, t_i)
+RH_HD int rh_in_band(int k_i, int t_i, int k_j, int t_j, const RhParams& P) {
+  const int dr = rh_sub(t_i, t_j);
+  return (k_j == k_i) & (dr <= P.max_dist_t) & (dr >= 0);
+}
+
 // one ring slot holding predecessor j (j_valid: j >= 0 and j < n_anchors)
 RH_HD RhSlot rh_slot(int k_i, int t_i, int q_i, int rk, int rt, int rq, int rf,
                      int j_valid, const RhParams& P) {
-  RhSlot s = {RH_INT32_MIN, 0};
-  int dr = rh_sub(t_i, rt);
-  s.in_band = j_valid && rk == k_i && dr <= P.max_dist_t && dr >= 0;
-  if (!s.in_band) return s;
-  int dq = rh_sub(q_i, rq);
-  if (dq <= 0 || dq > P.max_dist_q || dr == 0 || dr > P.max_dist_q) return s;
-  int diff = rh_sub(dr, dq);
-  int dd = diff < 0 ? -diff : diff;
-  if (dd > P.bw) return s;
-  s.total = rh_add(rh_score(dd, dr < dq ? dr : dq, P), rf);
+  RhSlot s;
+  s.in_band = j_valid && rh_in_band(k_i, t_i, rk, rt, P);
+  s.total = j_valid ? rh_pair_total(k_i, t_i, q_i, rk, rt, rq, rf, P)
+                    : RH_INT32_MIN;
   return s;
 }
 
@@ -219,5 +242,106 @@ RH_HD void rh_fill_read(const int* key, const int* tpos, const int* qpos,
   for (int i = n_a < 0 ? 0 : n_a; i < n; ++i) {
     f[i] = 0;
     p[i] = -1;
+  }
+}
+
+// ---- The segment fill (rows sorted by (unsigned key, tpos)) ----
+//
+// Anchor i starts a segment when i == 0 or anchor i-1 is not in its band.
+// Sorted rows make that a hard border: no anchor from i on has an in-band
+// predecessor before i (same key means same or earlier tpos before i-1, so
+// dr only grows), so i's window has no slot in band, max_ii is stale by
+// rh_step's own test, and rh_step gives f_i = q_span, p_i = -1 and resets
+// max_ii to i.  Each segment is then a DP of its own, filled in any order.
+RH_HD int rh_segment_start(int i, int k_prev, int t_prev, int k_i, int t_i,
+                           const RhParams& P) {
+  return i == 0 || !rh_in_band(k_i, t_i, k_prev, t_prev, P);
+}
+
+// Running maxima of an in-band suffix, met in decreasing j: a smaller j
+// replaces only on a strictly larger value, so ties keep the largest j.
+struct RhScan {
+  int best, best_j;  // best total and its j (-1: none scored)
+  int re_f, re_j;    // best f among in-band predecessors and its j (-1: none)
+};
+
+RH_HD RhScan rh_scan_init() { return {RH_INT32_MIN, -1, RH_INT32_MIN, -1}; }
+
+// add in-band predecessor j with its total (rh_pair_total) and its f
+RH_HD void rh_scan_add(RhScan& a, int j, int total, int f_j) {
+  if (total > a.best) {
+    a.best = total;
+    a.best_j = j;
+  }
+  if ((a.re_j < 0) | (f_j > a.re_f)) {
+    a.re_f = f_j;
+    a.re_j = j;
+  }
+}
+
+// slot of the anchor d (1 <= d <= size) before the one in slot s of a ring
+RH_HD int rh_ring_back(int s, int d, int size) {
+  s -= d;
+  return s < 0 ? s + size : s;
+}
+
+// The kernel's shared memory: each warp of a block holds a ring of
+// w + RH_FILL_AHEAD slots of 16 bytes (key, tpos, qpos, f): the w
+// predecessors, the 32 anchors being stepped and the 32 fetched ahead.  A
+// block may take RH_FILL_SMEM bytes (the H100's 227 KB), so it runs as many
+// warps as their rings fit, at most max_warps: 0 if not one ring fits.
+#define RH_FILL_AHEAD 64
+#define RH_FILL_SMEM 232448
+
+RH_HD int rh_fill_warps(int w, int max_warps) {
+  if (w < 1) return 0;
+  const long long fit = RH_FILL_SMEM / (16LL * ((long long)w + RH_FILL_AHEAD));
+  return fit < max_warps ? (int)fit : max_warps;
+}
+
+// Serial fill of one segment [s, e): s a segment start, e the next start or
+// n_anchors.  Anchor i scans only its in-band suffix, j = i-1, i-2, ...,
+// down to max(i - w, s), and stops at the first predecessor out of band; the
+// window's out-of-band slots can neither score nor count, so rh_step sees
+// what rh_fill_read's full window gives it.  ring holds 4*w ints (key, tpos,
+// qpos, f of the segment's last w anchors) and needs no clearing; its slot
+// is incremented, never recomputed, and max_ii starts empty at s.  The
+// CUDA kernel fills a segment in this order and scores the same suffixes,
+// 32 predecessors at a time.
+RH_HD void rh_fill_segment(const int* key, const int* tpos, const int* qpos,
+                           int s, int e, int* f, int* p, int* ring,
+                           const RhParams& P) {
+  int* rk = ring;
+  int* rt = ring + P.w;
+  int* rq = ring + 2 * P.w;
+  int* rf = ring + 3 * P.w;
+  RhMii m = {-1, 0, 0, 0, RH_INT32_MIN};
+  int cur = 0;  // ring slot of anchor i
+  for (int i = s; i < e; ++i) {
+    const int k_i = key[i], t_i = tpos[i], q_i = qpos[i];
+    const int reach = i - s < P.w ? i - s : P.w;
+    RhScan a = rh_scan_init();
+    int n_in = 0;
+    for (; n_in < reach; ++n_in) {
+      const int sl = rh_ring_back(cur, n_in + 1, P.w);
+      const RhSlot r =
+          rh_slot(k_i, t_i, q_i, rk[sl], rt[sl], rq[sl], rf[sl], 1, P);
+      if (!r.in_band) break;
+      rh_scan_add(a, i - 1 - n_in, r.total, rf[sl]);
+    }
+    RhWindow win = {a.best, a.best_j, n_in, a.re_j, 0, 0, 0, RH_INT32_MIN};
+    if (n_in > 0) {
+      const int rs = rh_ring_back(cur, i - a.re_j, P.w);
+      win.re_key = rk[rs];
+      win.re_tpos = rt[rs];
+      win.re_qpos = rq[rs];
+      win.re_f = rf[rs];
+    }
+    rh_step(i, k_i, t_i, q_i, win, m, P, &f[i], &p[i]);
+    rk[cur] = k_i;
+    rt[cur] = t_i;
+    rq[cur] = q_i;
+    rf[cur] = f[i];
+    cur = cur + 1 == P.w ? 0 : cur + 1;
   }
 }

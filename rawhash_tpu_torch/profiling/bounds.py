@@ -59,27 +59,29 @@ def bound(nbytes: float, **ops: float) -> dict:
     return {"bound_ms": ms[by], "bound_class": by}
 
 
-# K1's instructions for one (anchor, window predecessor) pair, by how far
-# rh_slot (csrc/chain_fill.cuh) takes the pair, as nvcc 12.8 compiles the
-# slot loop of csrc/chain_fill.cu for sm_90a (a compare and the logical
-# operation joining it are one ISETP; --fmad=false keeps every fp32 multiply
-# and add apart).  Left out, so the bound stays a lower one: the ring slot's
-# anchor index (a modulo), the shared-memory loads, the loop, the (total, j)
-# maximum of pairs that score nothing, and the per-anchor step.
+# K1's instructions for one (anchor, predecessor) pair, by how far rh_slot
+# (csrc/chain_fill.cuh) takes the pair, as nvcc 12.8 compiles it for sm_90a
+# (a compare and the logical operation joining it are one ISETP;
+# --fmad=false keeps every fp32 multiply and add apart).  The kernel
+# (csrc/chain_fill.cu) finds each anchor's in-band suffix with rh_in_band,
+# scores the suffix's pairs with rh_pair_total (rh_slot's tests and score)
+# and keeps their maxima with rh_scan_add (chain_fill.cuh).  Left out,
+# so the bound stays a lower one: the ring slot's index, the shared-memory
+# loads, the scan's ballot and loop, the warp reductions, segment starts,
+# and the per-anchor step.
 FILL_COST = {
-    # every tested pair: dr and the band test (rh_slot :86-87)
+    # every tested pair: dr and the band test (rh_in_band)
     "tested": {"int32": 5},
-    # in band: dq, the early-out tests, |dr - dq| and dd > bw (:89-93), and
-    # the kernel's in-band count and (f, j) maximum (.cu :102-106)
+    # in band: dq, the early-out tests, |dr - dq| and dd > bw (rh_slot), and
+    # the (f, j) maximum of the in-band predecessors (rh_scan_add)
     "in_band": {"int32": 13},
-    # scored: min(dr, dq), min(dg, q_span), the penalty test (rh_score
-    # :68-69), the total (:94) and its (total, j) maximum (.cu :100-101)
+    # scored: min(dr, dq), min(dg, q_span), the penalty test (rh_score), the
+    # total (rh_slot) and its (total, j) maximum (rh_scan_add)
     "scored": {"int32": 10},
     # penalised (dd != 0 or dg > q_span): dd >= 1, two int->float
-    # conversions, the linear penalty, the sum, the truncation, sc -= (:70-73)
+    # conversions, the linear penalty, the sum, the truncation, sc -= (rh_score)
     "penalised": {"int32": 2, "fp32": 4, "cvt": 3},
-    # logged (dd >= 1): dd + 1, its conversion, rh_mg_log2 (:57-63) and the
-    # halving
+    # logged (dd >= 1): dd + 1, its conversion, rh_mg_log2 and the halving
     "logged": {"int32": 6, "fp32": 6, "cvt": 2},
 }
 
@@ -132,3 +134,33 @@ def fill_ops(work: dict) -> dict:
         for cls, per in cost.items():
             ops[cls] += per * work[step]
     return ops
+
+
+def fill_segments(key, tpos, n_anchors, *, max_dist_t, bw, **_) -> dict:
+    """The chain segments of rows sorted by (unsigned key, tpos), as K1
+    splits them (csrc/chain_fill.cuh: rh_segment_start): a live anchor
+    starts one when it is a row's first or the anchor before it is out of
+    its band (another key, or tpos not in [0, max_dist_t] behind, with
+    max_dist_t clamped to >= bw).  {segments, longest, singletons, stepped}:
+    stepped counts the anchors past a segment's first, which the kernel
+    steps one by one.  Counted with tensor operations on the inputs'
+    device."""
+    mdt = max(max_dist_t, bw)
+    b, n = key.shape
+    if n == 0:
+        return {"segments": 0, "longest": 0, "singletons": 0, "stepped": 0}
+    live = torch.arange(n, device=key.device)[None, :] < n_anchors[:, None]
+    dr = tpos[:, 1:] - tpos[:, :-1]
+    band = (key[:, 1:] == key[:, :-1]) & (dr >= 0) & (dr <= mdt)
+    start = live & torch.nn.functional.pad(~band, (1, 0), value=True)
+    # a live anchor ends a segment when the next one starts one or is not live
+    end = live & torch.nn.functional.pad(start[:, 1:] | ~live[:, 1:], (0, 1),
+                                         value=True)
+    # starts and ends alternate along each row, so in row-major order the
+    # k-th start and the k-th end bound the k-th segment
+    length = end.flatten().nonzero() - start.flatten().nonzero() + 1
+    n_seg = int(length.numel())
+    return {"segments": n_seg,
+            "longest": int(length.max()) if n_seg else 0,
+            "singletons": int((length == 1).sum()),
+            "stepped": int(live.sum()) - n_seg}

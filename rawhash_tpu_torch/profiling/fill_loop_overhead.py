@@ -1,12 +1,14 @@
 """Fill-loop-overhead probe: K1's loop skeleton, timed on the card.
 
 Port of tools/profiling/fill_loop_overhead.py (the Pallas probe in its
-`make`).  The fill (K1, csrc/chain_fill.cu) runs one warp per read through
-a serial chain of anchor steps over a W-slot ring in shared memory.  The
-probe keeps that skeleton and replaces each step's scoring by k_ops integer
-max steps per slot: if the time per iteration stays flat as k_ops grows,
-the loop, the shuffles and the carry dominate; if it grows with k_ops, the
-operations themselves do.
+`make`).  The first port of the fill K1 ran one warp per read through a
+serial chain of anchor steps over a W-slot ring in shared memory, scoring
+all W slots a step with two 64-bit shuffle maxima; csrc/chain_fill.cu no
+longer does (it steps segments through their in-band suffixes), but the
+probe still measures that old skeleton.  It replaces each step's scoring
+by k_ops integer max steps per slot: if the time per iteration stays flat
+as k_ops grows, the loop, the shuffles and the carry dominate; if it grows
+with k_ops, the operations themselves do.
 
 `fill_loop_probe` runs csrc/fill_loop_probe.cu on CUDA tensors or raises;
 on CPU tensors it runs `fill_loop_probe_plain`, the loop of the JAX body in

@@ -96,3 +96,63 @@ def random_chains(seed: int, b: int, n: int, n_heads: int, min_sc: int = 20):
     n_anchors = np.full(b, n, np.int32)
     n_anchors[-1] = n - 7
     return f, p, n_anchors, tpos, qpos
+
+
+def clustered_anchors(seed: int, b: int, n: int):
+    """Fill inputs along one diagonal per strand from a seed: (key bits as
+    int32, tpos, qpos, n_anchors) of b rows of n anchors, n/2 to n live,
+    sorted by (unsigned key, tpos); each row is two long chain segments."""
+    rng = np.random.default_rng(seed)
+    tpos = np.sort(rng.integers(0, 4 * n, (b, n)), axis=1).astype(np.int32)
+    qpos = (tpos // 2 + rng.integers(-20, 20, (b, n))).clip(0).astype(np.int32)
+    key = np.sort(rng.integers(0, 2, (b, n)).astype(np.uint32) << 31, axis=1)
+    n_anchors = rng.integers(n // 2, n + 1, b).astype(np.int32)
+    return key.view(np.int32), tpos, qpos, n_anchors
+
+
+def sparse_anchors(seed: int, b: int, n: int):
+    """Fill inputs like D4's from a seed: (key bits as uint32, tpos, qpos,
+    n_anchors) of b rows of n anchors, n/2 to n live, mostly lone hits
+    spread over a 100 Mbp target (chain segments of one or a few anchors),
+    plus one to three dense diagonal clusters of 8 to 200 anchors, each on
+    one strand; sorted by (unsigned key, tpos)."""
+    rng = np.random.default_rng(seed)
+    key = np.empty((b, n), np.uint32)
+    tpos = np.empty((b, n), np.int32)
+    qpos = np.empty((b, n), np.int32)
+    for r in range(b):
+        sizes = rng.integers(8, min(n // 6, 200), rng.integers(1, 4))
+        n_lone = n - int(sizes.sum())
+        ks = [rng.integers(0, 2, n_lone)]
+        ts = [rng.integers(0, 10**8, n_lone)]
+        qs = [rng.integers(0, 3000, n_lone)]
+        for size in sizes:
+            step = rng.integers(1, 60, size)
+            ks.append(np.full(size, rng.integers(0, 2)))
+            ts.append(rng.integers(0, 10**8) + np.cumsum(step))
+            qs.append(rng.integers(0, 1000) + np.cumsum(step + rng.integers(-3, 4, size)))
+        k = np.concatenate(ks).astype(np.uint32) << 31
+        t, q = np.concatenate(ts), np.concatenate(qs)
+        order = np.lexsort((t, k))
+        key[r], tpos[r], qpos[r] = k[order], t[order], q[order]
+    n_anchors = rng.integers(n // 2, n + 1, b).astype(np.int32)
+    n_anchors[0] = n
+    return key, tpos, qpos, n_anchors
+
+
+def border_anchors(max_dist_t: int, bw: int, n: int = 120, seed: int = 41):
+    """Fill inputs at the chain segments' borders: 4 rows whose tpos gaps
+    include exactly the clamped max_dist_t and one more, and 0 (duplicate
+    tpos); n_anchors of n, 0, 1 and n - 7, the last live anchor of row 3
+    on the other strand.  (key bits as uint32, tpos, qpos, n_anchors)."""
+    mdt = max(max_dist_t, bw)
+    rng = np.random.default_rng(seed)
+    gaps = rng.choice(np.array([0, 1, 7, 40, mdt, mdt + 1]), size=(4, n),
+                      p=[0.15, 0.2, 0.25, 0.2, 0.1, 0.1])
+    gaps[:, 0] = 0
+    tpos = np.cumsum(gaps, axis=1).astype(np.int32)
+    qpos = (tpos + rng.integers(-3, 4, (4, n))).clip(0).astype(np.int32)
+    key = np.zeros((4, n), np.uint32)
+    key[3, n - 8:] = 1 << 31
+    n_anchors = np.array([n, 0, 1, n - 7], np.int32)
+    return key, tpos, qpos, n_anchors

@@ -15,12 +15,15 @@ torch.set_num_threads(1)  # small tensors; xdist workers share the cores
 from rawhash_tpu_torch.chain.backtrack import chain_backtrack  # noqa: E402
 from rawhash_tpu_torch.chain.backtrack_device import backtrack_plain  # noqa: E402
 from rawhash_tpu_torch.chain.device import chain_fill_batch  # noqa: E402
-from rawhash_tpu_torch.chain.fill import chain_fill  # noqa: E402
+from rawhash_tpu_torch.chain.fill import MAX_ITER_CAP, chain_fill  # noqa: E402
 from rawhash_tpu_torch.map.engine import fill_params  # noqa: E402
+from rawhash_tpu_torch.profiling.bounds import fill_work  # noqa: E402
 from rawhash_tpu_torch.profiling.fill_loop_overhead import (  # noqa: E402
     INT32_MIN, MAX_W, fill_loop_probe, fill_loop_probe_plain,
 )
-from rawhash_tpu_torch.synthetic import options, random_chains  # noqa: E402
+from rawhash_tpu_torch.synthetic import (  # noqa: E402
+    border_anchors, clustered_anchors, options, random_chains, sparse_anchors,
+)
 
 
 @pytest.fixture
@@ -42,12 +45,42 @@ def test_chain_fill_kernel_matches_plain(cuda_device, preset, b, n):
     args = [torch.from_numpy(x).to(cuda_device)
             for x in (key.view(np.int32), tpos, qpos, n_anchors)]
     prm = fill_params(*options(preset))
+    assert fill_work(*args, **prm)["unsorted"] == 0  # the kernel's precondition
     before = chain_fill.launches
     f, p = chain_fill(*args, **prm)
     f0, p0 = chain_fill_batch(*args, **prm)
     torch.cuda.synchronize()
     assert chain_fill.launches == before + 1
     assert torch.equal(f, f0) and torch.equal(p, p0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preset", ["viral", "sensitive"])
+@pytest.mark.parametrize("inputs,w", [("sparse", 200), ("clustered", 845),
+                                      ("borders", 1),
+                                      ("borders", 16), ("borders", 200),
+                                      ("borders", 845), ("borders", MAX_ITER_CAP)])
+def test_chain_fill_kernel_matches_plain_on_segments(cuda_device, preset, inputs, w):
+    """Rows of many chain segments: lone hits with a few clusters (D4-like),
+    segments of 500-1000 anchors (clustered, some longer than W), and tpos gaps
+    of exactly the band's end and one more, duplicate tpos, a strand change
+    at the last live anchor, 0 and 1 live anchors; W up to
+    the ring's cap (16 warps a read up to W = 844, 15 at 845, one warp's
+    ring in the block's whole shared memory at the cap)."""
+    prm = dict(fill_params(*options(preset)), max_iter=w)
+    a = {"sparse": lambda: sparse_anchors(7, 64, 3000),
+         "clustered": lambda: clustered_anchors(2048, 8, 2048),
+         "borders": lambda: border_anchors(prm["max_dist_t"], prm["bw"], n=700),
+         }[inputs]()
+    args = [torch.from_numpy(np.ascontiguousarray(x).view(np.int32)).to(cuda_device)
+            if x.dtype == np.uint32 else torch.from_numpy(x).to(cuda_device)
+            for x in a]
+    assert fill_work(*args, **prm)["unsorted"] == 0  # the kernel's precondition
+    f, p = chain_fill(*args, **prm)
+    f0, p0 = chain_fill_batch(*args, **prm)
+    torch.cuda.synchronize()
+    assert torch.equal(f, f0) and torch.equal(p, p0)
+    assert int((p >= 0).sum()) > 0
 
 
 @pytest.mark.cuda
