@@ -16,7 +16,12 @@ Phases, each printed as one JSON line and each fatal on failure:
                (past 32768, the K3 regime), B=64 N=4096 with k_cap 4
                (chains lost to k_cap); all ten outputs, the compacted
                summaries and the carried prefix bit-equal; kernel timed
-               (median of 7), the plain version once (on CPU copies)
+               with its candidate order (median of 7), the old full-width
+               sort and the new order timed apart, the plain version once
+               (on CPU copies); the counted work (candidates, walk and
+               claim steps, serial_steps_max) and the bound from it; at
+               256 x 16384 the kernel at each staging depth, checked and
+               timed in turns
   4. loops     time the plain stages' stepped loops (_gen_peaks, _diff_filter)
   5. k4        the fill-loop probe (K1's loop skeleton): kernel vs the plain
                probe bit for bit on a random start at 1000 iterations
@@ -41,13 +46,16 @@ Phases, each printed as one JSON line and each fatal on failure:
                1 x 256 reads of 3000 bases, default --max-anchors (4096)
                and --max-anchor-cap (2^17); the device tail at backtrack
                widths past 32768
- 10. d4_kernels both kernels on the inputs d4's main path gave them (its
-               widest device-tail call, caught during the run): timed at
+ 10. d2_kernels the backtrack on the inputs d2's main path gave it (its
+               widest device-tail call, caught during the run), as in
+               phase 3, every row held bit for bit against the plain
+               version, with the staging depths
+     d4_kernels both kernels on d4's widest device-tail call: timed at
                that whole shape (median of 5), and 8 of its rows at full
                width held bit for bit against the plain fill and the plain
                backtrack (all ten outputs, compaction, carried prefix) on
                CPU copies, each plain version timed once; with the fill
-               input's chain segments
+               input's chain segments and the backtrack's work and depths
  11. fill_warps K1 at 4, 8 and 16 warps a read on the main path's own fill
                inputs (the widest fill call of d1, d2 and d4, caught during
                their runs) and on k1's sensitive 256 x 16384 input: each
@@ -194,19 +202,20 @@ def phase_k1(torch, dev) -> list:
     return results
 
 
-def backtrack_bound(n_anchors, n_u, n_v) -> dict:
-    """The backtrack's bound from this run's inputs and outputs: the
-    candidate order (f, idx) and f, p, tpos, qpos read for every live anchor
-    (24 B), v written for every claimed anchor (4 B), the six chain rows for
-    every kept chain (24 B), and the read's counts (16 B); ~10 int32
-    operations per live anchor (a candidate visit, a walk step and a claim
-    step of a few each), at the int32 rate."""
-    from rawhash_tpu_torch.profiling.bounds import bound
+def backtrack_bound(inputs, bt, k_cap) -> dict:
+    """The backtrack's bound from this run's inputs (profiling/bounds.py):
+    its serial algorithm run on the host counts the candidates, claimed
+    skips, walk and claim steps, kept chains and v writes these inputs
+    need; their bytes and int32 operations at the H100's rates.  With the
+    counts (`work`, its serial_steps_max the longest read's dependent
+    steps)."""
+    from rawhash_tpu_torch.profiling.bounds import (
+        backtrack_bytes, backtrack_ops, backtrack_work, bound,
+    )
 
-    na, n_u, n_v = (np.asarray(x.cpu() if hasattr(x, "cpu") else x, np.float64)
-                    for x in (n_anchors, n_u, n_v))
-    return bound(24 * na.sum() + 4 * n_v.sum() + 24 * n_u.sum() + 16 * na.size,
-                 int32=10.0 * na.sum())
+    work = backtrack_work(*inputs, **bt, k_cap=k_cap)
+    return {**bound(backtrack_bytes(work, inputs[0].shape[0]), **backtrack_ops(work)),
+            "work": work}
 
 
 def check_backtrack(torch, label, inputs, key, got, *, bt, k_cap, p_out) -> tuple:
@@ -254,10 +263,83 @@ def backtrack_params(mo, prm) -> dict:
                 max_drop=mo.bw, q_span=prm["q_span"])
 
 
+def measure_backtrack(torch, label, inputs, key, *, bt, k_cap, p_out, reps,
+                      rows=None) -> dict:
+    """chain_backtrack on `inputs` (f, p, n_anchors, tpos, qpos on the
+    card): its outputs on `rows` (all if None) against the plain version on
+    CPU copies (check_backtrack), its time with its candidate order, the
+    old full-width sort's time beside the new order's, the candidates, the
+    launch plan and the counted bound with ns per serial step."""
+    from rawhash_tpu_torch.chain.backtrack import (
+        candidate_order, candidates, chain_backtrack, launch_depth,
+    )
+
+    got = chain_backtrack(*inputs, **bt, k_cap=k_cap)  # the warm-up
+    if rows is None:
+        err, plain_ms = check_backtrack(torch, label, inputs, key, got, bt=bt,
+                                        k_cap=k_cap, p_out=p_out)
+    else:
+        err, plain_ms = check_backtrack(
+            torch, f"{label} {len(rows)} rows", [t[rows] for t in inputs],
+            key[rows], [t[rows] for t in got], bt=bt, k_cap=k_cap, p_out=p_out)
+    f, _, n_anchors, _, _ = inputs
+    ms = cuda_ms(torch, lambda: chain_backtrack(*inputs, **bt, k_cap=k_cap), reps)
+    sort_ms = cuda_ms(torch, lambda: candidates(f, n_anchors), reps)
+    order_ms = cuda_ms(torch, lambda: candidate_order(f, n_anchors, bt["min_sc"]), reps)
+    z_f, _, n_cand, a_max = candidate_order(f, n_anchors, bt["min_sc"])
+    depth = launch_depth(a_max)
+    bnd = backtrack_bound(inputs, bt, k_cap)
+    check(int(n_cand.sum()) == bnd["work"]["candidates"],
+          f"{label}: the candidate order and the counted work disagree")
+    steps = bnd["work"]["serial_steps_max"]
+    return dict(
+        b=f.shape[0], n=f.shape[1], k_cap=k_cap, anchors=int(n_anchors.sum()),
+        a_max=a_max, candidates=int(n_cand.sum()), c=z_f.shape[1],
+        depth=depth, n_u_max=int(got[2].max()),
+        n_v_max=int(got[4].max()), chain_overflow=int(got[5].sum()),
+        max_abs_err=err, ms=ms, full_sort_ms=sort_ms, order_ms=order_ms,
+        plain_ms=plain_ms, plain_device="cpu",
+        plain_rows=f.shape[0] if rows is None else len(rows),
+        ns_per_serial_step=ms * 1e6 / max(steps, 1), **bnd)
+
+
+DEPTHS = (0, 4, 8, 16, 32)
+
+
+def backtrack_depths(torch, label, inputs, *, bt, k_cap) -> dict:
+    """The kernel on one input at each staging depth of DEPTHS (as far as
+    its shared memory holds it): each bit-equal to chain_backtrack's
+    outputs, then timed in turns (median of 5, forward and reverse order,
+    twice), the launch alone (the candidate order built once, before)."""
+    from rawhash_tpu_torch.chain.backtrack import (
+        backtrack_launch, candidate_order, chain_backtrack, launch_depth,
+    )
+
+    f, p, n_anchors, tpos, qpos = inputs
+    order = candidate_order(f, n_anchors, bt["min_sc"])
+    want = chain_backtrack(*inputs, **bt, k_cap=k_cap)
+    depths = {f"d{d}": launch_depth(order[3], d) for d in DEPTHS}
+
+    def run(name):
+        return backtrack_launch(f, p, tpos, qpos, order, **bt, k_cap=k_cap,
+                                depth=depths[name])
+
+    for name in depths:  # also each timing's warm-up
+        check(all(torch.equal(a, c) for a, c in zip(run(name), want)),
+              f"{label}: depth {name} disagrees with chain_backtrack")
+    ms = {name: [] for name in depths}
+    names = list(depths)
+    for turn in (names, names[::-1]) * 2:
+        for name in turn:
+            ms[name].append(cuda_ms(torch, lambda: run(name), 5))
+    med = {name: float(np.median(v)) for name, v in ms.items()}
+    return dict(depths=depths, ms=ms, median_ms=med,
+                fastest=min(med, key=med.get))
+
+
 def phase_backtrack(torch, dev) -> list:
     """The backtrack kernel vs its plain version on f/p from K1, and the
-    compaction of each."""
-    from rawhash_tpu_torch.chain.backtrack import candidates, chain_backtrack
+    compaction of each; the staging depths on the 256 x 16384 input."""
     from rawhash_tpu_torch.chain.fill import chain_fill
     from rawhash_tpu_torch.map.engine import fill_params
     from rawhash_tpu_torch.synthetic import clustered_anchors, options
@@ -271,17 +353,11 @@ def phase_backtrack(torch, dev) -> list:
         key, tpos, qpos, n_anchors = args
         f, p = chain_fill(*args, **prm)
         inputs = (f, p, n_anchors, tpos, qpos)
-        got = chain_backtrack(*inputs, **bt, k_cap=k_cap)  # the warm-up
-        err, plain_ms = check_backtrack(
-            torch, f"backtrack B={b} N={n}", inputs, key, got, bt=bt,
-            k_cap=k_cap, p_out=min(4096, n))
-        ms = cuda_ms(torch, lambda: chain_backtrack(*inputs, **bt, k_cap=k_cap), 7)
-        sort_ms = cuda_ms(torch, lambda: candidates(f, n_anchors), 7)
-        row = dict(b=b, n=n, k_cap=k_cap, anchors=int(n_anchors.sum()),
-                   n_u_max=int(got[2].max()), n_v_max=int(got[4].max()),
-                   chain_overflow=int(got[5].sum()), max_abs_err=err, ms=ms,
-                   sort_ms=sort_ms, plain_ms=plain_ms, plain_device="cpu",
-                   **backtrack_bound(n_anchors, got[2], got[4]))
+        row = measure_backtrack(torch, f"backtrack B={b} N={n}", inputs, key,
+                                bt=bt, k_cap=k_cap, p_out=min(4096, n), reps=7)
+        if n == 16384:
+            row["depths"] = backtrack_depths(
+                torch, f"backtrack B={b} N={n}", inputs, bt=bt, k_cap=k_cap)
         emit({"phase": "backtrack", **row})
         results.append(row)
         if k_cap < 10:
@@ -289,13 +365,21 @@ def phase_backtrack(torch, dev) -> list:
     return results
 
 
-def phase_d4_kernels(torch, caught, rows: int = 8) -> dict:
-    """Both kernels on the inputs D4's main path gave them: the widest
-    tail_finish call of the d4 run, caught there.  The kernels are timed at
-    that whole shape; `rows` of its rows (the widest, the narrowest and
-    others evenly between them by width), at full width, are held bit for
-    bit against the plain fill and the plain backtrack on CPU copies."""
-    from rawhash_tpu_torch.chain.backtrack import candidates, chain_backtrack
+def held_rows(n_anchors, rows: int):
+    """`rows` rows by live anchors: the widest, the narrowest and others
+    evenly between them."""
+    na = n_anchors.cpu().numpy()
+    b = len(na)
+    return np.argsort(-na, kind="stable")[np.linspace(0, b - 1, rows).astype(int)]
+
+
+def phase_tail_kernels(torch, name, caught, *, rows=None, fill=False) -> dict:
+    """The kernels on the inputs a cell's main path gave them: its widest
+    tail_finish call, caught there.  The backtrack (and, with `fill`, the
+    fill) is timed at that whole shape; its outputs on `rows` of its rows
+    (the widest, the narrowest and others evenly between them by live
+    anchors; all rows if None), at full width, are held bit for bit against
+    the plain versions on CPU copies; then the backtrack at each staging depth."""
     from rawhash_tpu_torch.chain.device import chain_fill_batch
     from rawhash_tpu_torch.chain.fill import chain_fill
     from rawhash_tpu_torch.map.engine import fill_params
@@ -306,46 +390,39 @@ def phase_d4_kernels(torch, caught, rows: int = 8) -> dict:
     bt = backtrack_params(mo, prm)
     out, k_cap, p_out = caught["out"], caught["k_cap"], caught["p_out"]
     b, n = out.f.shape
+    idx = None
     na = out.n_anchors.cpu().numpy()
-    sel = np.argsort(-na, kind="stable")[np.linspace(0, b - 1, rows).astype(int)]
-    idx = torch.as_tensor(sel, device=out.f.device)
-    fill_in = (out.key, out.tpos, out.qpos, out.n_anchors)
+    res = dict(b=b, n=n, k_cap=k_cap, p_out=p_out, anchors=int(na.sum()),
+               anchors_max=int(na.max()), plain_device="cpu")
+    if rows is not None:
+        sel = held_rows(out.n_anchors, rows)
+        idx = torch.as_tensor(sel, device=out.f.device)
+        res["plain_rows_anchors"] = [int(na[r]) for r in sel]
 
-    # K1: the main path's f/p against the plain fill on the chosen rows
-    f, p = chain_fill(*fill_in, **prm)  # also the timing's warm-up
-    check(torch.equal(f, out.f) and torch.equal(p, out.p),
-          "d4: the fill gave another f/p on the same inputs")
-    t0 = time.perf_counter()
-    f0, p0 = chain_fill_batch(*(t[idx].cpu() for t in fill_in), **prm)
-    fill_plain_ms = (time.perf_counter() - t0) * 1e3
-    f_r, p_r = out.f[idx].cpu(), out.p[idx].cpu()
-    fill_err = max(int((f_r - f0).abs().max()), int((p_r - p0).abs().max()))
-    check(torch.equal(f_r, f0) and torch.equal(p_r, p0),
-          f"d4: fill kernel disagrees with the plain fill (max abs err {fill_err})")
-    fill_ms = cuda_ms(torch, lambda: chain_fill(*fill_in, **prm), 5)
+    if fill:  # K1: the main path's f/p against the plain fill
+        fill_in = (out.key, out.tpos, out.qpos, out.n_anchors)
+        f, p = chain_fill(*fill_in, **prm)  # also the timing's warm-up
+        check(torch.equal(f, out.f) and torch.equal(p, out.p),
+              f"{name}: the fill gave another f/p on the same inputs")
+        held = [t if idx is None else t[idx] for t in (*fill_in, out.f, out.p)]
+        t0 = time.perf_counter()
+        f0, p0 = chain_fill_batch(*(t.cpu() for t in held[:4]), **prm)
+        fill_plain_ms = (time.perf_counter() - t0) * 1e3
+        f_r, p_r = held[4].cpu(), held[5].cpu()
+        fill_err = max(int((f_r - f0).abs().max()), int((p_r - p0).abs().max()))
+        check(torch.equal(f_r, f0) and torch.equal(p_r, p0),
+              f"{name}: fill kernel disagrees with the plain fill (max abs err {fill_err})")
+        res["fill"] = dict(ms=cuda_ms(torch, lambda: chain_fill(*fill_in, **prm), 5),
+                           plain_ms=fill_plain_ms, max_abs_err=fill_err,
+                           **fill_bound(*fill_in, prm))
 
-    # K3: the main path's backtrack inputs, the kernel's outputs on the
-    # chosen rows against the plain version
     inputs = (out.f, out.p, out.n_anchors, out.tpos, out.qpos)
-    got = chain_backtrack(*inputs, **bt, k_cap=k_cap)  # the warm-up
-    bt_err, bt_plain_ms = check_backtrack(
-        torch, f"d4 backtrack {rows}x{n}", [t[idx] for t in inputs],
-        out.key[idx], [t[idx] for t in got], bt=bt, k_cap=k_cap, p_out=p_out)
-    bt_ms = cuda_ms(torch, lambda: chain_backtrack(*inputs, **bt, k_cap=k_cap), 5)
-    sort_ms = cuda_ms(torch, lambda: candidates(out.f, out.n_anchors), 5)
-    res = dict(
-        b=b, n=n, k_cap=k_cap, p_out=p_out, anchors=int(na.sum()),
-        anchors_max=int(na.max()), plain_rows=rows, plain_device="cpu",
-        plain_rows_anchors=[int(na[r]) for r in sel],
-        fill=dict(ms=fill_ms, plain_ms=fill_plain_ms, max_abs_err=fill_err,
-                  **fill_bound(*fill_in, prm)),
-        backtrack=dict(ms=bt_ms, sort_ms=sort_ms, plain_ms=bt_plain_ms,
-                       max_abs_err=bt_err, n_u_max=int(got[2].max()),
-                       n_v_max=int(got[4].max()),
-                       chain_overflow=int(got[5].sum()),
-                       **backtrack_bound(na, got[2], got[4])),
-    )
-    emit({"phase": "d4_kernels", **res})
+    res["backtrack"] = measure_backtrack(
+        torch, f"{name} backtrack", inputs, out.key, bt=bt, k_cap=k_cap,
+        p_out=p_out, reps=5, rows=idx)
+    res["backtrack"]["depths"] = backtrack_depths(
+        torch, f"{name} backtrack", inputs, bt=bt, k_cap=k_cap)
+    emit({"phase": f"{name}_kernels", **res})
     return res
 
 
@@ -726,10 +803,16 @@ def main() -> int:
                 name, lambda: phase_deployment(torch, dev, name, *cell,
                                                caught[name]), counters)
         (d1, n1), (d2, n2), (d4, n4) = (runs[c] for c in cells)
-        check("tail" in caught["d4"], "d4: no device-tail call to check the kernels on")
-        t0 = time.perf_counter()
-        timed["d4_kernels"] = phase_d4_kernels(torch, caught["d4"].pop("tail"))
-        emit({"phase": "d4_kernels_done", "seconds": time.perf_counter() - t0})
+        # the kernels on each device-tail cell's own widest tail call: D2's
+        # backtrack held on all its rows, D4's fill and backtrack on 8
+        for name, rows, fill in (("d2", None, False), ("d4", 8, True)):
+            check("tail" in caught[name],
+                  f"{name}: no device-tail call to check the kernels on")
+            t0 = time.perf_counter()
+            timed[f"{name}_kernels"] = phase_tail_kernels(
+                torch, name, caught[name].pop("tail"), rows=rows, fill=fill)
+            emit({"phase": f"{name}_kernels_done",
+                  "seconds": time.perf_counter() - t0})
         t0 = time.perf_counter()
         timed["fill_warps"] = phase_fill_warps(
             torch, dev, {c: caught[c].pop("fill") for c in cells})
@@ -769,19 +852,26 @@ def main() -> int:
         # one kernel for both TPU kernels: K2's row at the D2 regime
         # (B=256, N=16384); K3's at D4's main-path inputs past 32768 (the
         # kernel on the whole batch, the plain version on its held rows)
+        # (K2's row also at D2's main-path inputs, all rows held)
         bt = timed["backtrack"]
+        d2k = timed["d2_kernels"]["backtrack"]
         d4k = timed["d4_kernels"]["backtrack"]
-        for replaces, shape in (("rawhash_tpu/chain/backtrack_pallas.py:147", bt[0]),
-                                ("rawhash_tpu/chain/backtrack_pallas_big.py:361", d4k)):
+        for replaces, shape, extra in (
+                ("rawhash_tpu/chain/backtrack_pallas.py:147", bt[0], {"d2": d2k}),
+                ("rawhash_tpu/chain/backtrack_pallas_big.py:361", d4k, {})):
             kernels.append({
                 "name": "chain_backtrack", "route": "cuda",
                 "source": "rawhash_tpu_torch/csrc/chain_backtrack.cu",
                 "replaces": replaces,
                 "launches": launches["chain_backtrack"],
-                "max_abs_err": max(r["max_abs_err"] for r in bt + [d4k]),
+                "max_abs_err": max(r["max_abs_err"] for r in bt + [d2k, d4k]),
                 "ms": shape["ms"], "plain_ms": shape["plain_ms"],
                 "bound_ms": shape["bound_ms"], "bound_by": bound_by(shape),
                 "library_ms": None,
+                **{c: {"ms": r["ms"], "plain_ms": r["plain_ms"],
+                       "bound_ms": r["bound_ms"],
+                       "serial_steps_max": r["work"]["serial_steps_max"]}
+                   for c, r in extra.items()},
             })
         k4 = timed["k4"]
         k4_row = next(c for c in k4["checks"] if c["w"] == 64 and c["k_ops"] == 20)

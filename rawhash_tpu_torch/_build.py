@@ -6,6 +6,10 @@ built at first use and cached by a hash of the sources and flags under
 `build/rawhash_tpu_torch/` at the repository root: one `nvcc -c` per source,
 all started together, then one link.  Concurrent builds each write private
 temp files and rename the library into place.
+
+`load_host_library` builds the backtrack's header for the host with g++
+(`csrc/chain_backtrack_host.cpp`): the tests and the backtrack's bound run
+the kernel's per-read logic from it.
 """
 
 from __future__ import annotations
@@ -29,6 +33,10 @@ NVCC_FLAGS = [
 
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
+_HOST_LIB: ctypes.CDLL | None = None
+# the host build of the backtrack's header (csrc/chain_backtrack_host.cpp)
+HOST_SRC = CSRC / "chain_backtrack_host.cpp"
+HOST_FLAGS = ["-O2", "-std=c++17", "-shared", "-fPIC", f"-I{CSRC}"]
 
 
 def nvcc_path() -> str:
@@ -64,7 +72,7 @@ def _run(cmds) -> str:
         out = proc.communicate()[0]
         logs.append(out)
         if proc.returncode != 0:
-            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
+            failed.append(f"{Path(cmd[0]).name} failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
     if failed:
         raise RuntimeError("\n".join(failed))
     return "".join(logs)
@@ -102,3 +110,27 @@ def load_library() -> ctypes.CDLL:
         if _LIB is None:
             _LIB = ctypes.CDLL(str(build()))
         return _LIB
+
+
+def load_host_library() -> ctypes.CDLL:
+    """The backtrack's header built for the host with g++
+    (csrc/chain_backtrack_host.cpp: rh_bt_serial, rh_bt_rounds), cached by
+    a hash of its sources under build/rawhash_tpu_torch/host, loaded once
+    per process."""
+    global _HOST_LIB
+    with _LOCK:
+        if _HOST_LIB is None:
+            h = hashlib.sha256(" ".join(HOST_FLAGS[:-1]).encode())
+            for src in (HOST_SRC, CSRC / "chain_backtrack.cuh"):
+                h.update(src.read_bytes())
+            so = BUILD_DIR / "host" / f"chain_backtrack_host_{h.hexdigest()[:16]}.so"
+            if not so.exists():
+                gxx = shutil.which("g++")
+                if gxx is None:
+                    raise RuntimeError("g++ not found: the backtrack's host build needs it")
+                so.parent.mkdir(parents=True, exist_ok=True)
+                tmp = so.with_name(f"{so.stem}.tmp{os.getpid()}.so")
+                _run([[gxx, *HOST_FLAGS, str(HOST_SRC), "-o", str(tmp)]])
+                os.replace(tmp, so)
+            _HOST_LIB = ctypes.CDLL(str(so))
+        return _HOST_LIB

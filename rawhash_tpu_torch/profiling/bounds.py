@@ -17,7 +17,9 @@ of the times:
 
 The work is counted from the inputs of the call, not the most they could
 need: `fill_work` counts the (anchor, predecessor) pairs K1's function
-needs, by how far the per-slot score takes each.
+needs, by how far the per-slot score takes each; `backtrack_work` counts
+the candidate visits and walk steps the backtrack needs, by running its
+serial algorithm on the host.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from __future__ import annotations
 import functools
 import subprocess
 
+import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12
@@ -164,3 +167,64 @@ def fill_segments(key, tpos, n_anchors, *, max_dist_t, bw, **_) -> dict:
             "longest": int(length.max()) if n_seg else 0,
             "singletons": int((length == 1).sum()),
             "stepped": int(live.sum()) - n_seg}
+
+
+# The backtrack's int32 instructions for each unit of its work (csrc/
+# chain_backtrack.cuh: rh_backtrack_read, rh_bt_walk), counted from the
+# source; left out, so the bound stays a lower one: loop control, address
+# arithmetic, loads and stores.
+BACKTRACK_COST = {
+    # the claimed bit of the candidate: shift, mask, test
+    "candidates": 3,
+    # s = zsc - f, better, the drop and its test, the max, the root test and
+    # the claimed bit of the node
+    "walk_steps": 9,
+    # the claimed bit set and the end test
+    "claim_steps": 4,
+    # the fuzzy lengths of a kept chain's pair: two differences, min, max,
+    # two tests, the select, three adds
+    "v_writes": 10,
+    # the acceptance tests and k_cap
+    "kept": 4,
+}
+
+
+def backtrack_work(f, p, n_anchors, tpos, qpos, *, min_cnt, min_sc, max_drop,
+                   k_cap, q_span) -> dict:
+    """The work the backtrack needs on these inputs, counted by its serial
+    algorithm on the host (rh_backtrack_read via chain/backtrack.py::
+    backtrack_host_serial, g++), summed over the rows: candidates (f >=
+    min_sc) visited, of them skipped as claimed, walk-A steps, claim steps,
+    kept chains and v writes; `live` anchors; and `serial_steps_max`, the
+    largest row's candidates + walk steps + claim steps, the length of its
+    chain of dependent steps."""
+    from ..chain.backtrack import backtrack_host_serial
+
+    _, work = backtrack_host_serial(
+        f, p, n_anchors, tpos, qpos, min_cnt=min_cnt, min_sc=min_sc,
+        max_drop=max_drop, k_cap=k_cap, q_span=q_span)
+    n = f.shape[1]
+    live = n_anchors.cpu().long().clamp(0, n)
+    names = ("candidates", "skipped", "walk_steps", "claim_steps", "kept",
+             "v_writes")
+    out = {k: int(work[:, i].sum()) for i, k in enumerate(names)}
+    serial = work[:, 0] + work[:, 2] + work[:, 3]
+    out["live"] = int(live.sum())
+    out["serial_steps_max"] = int(serial.max()) if len(serial) else 0
+    # p read once at most for each live anchor a walk passes
+    out["p_reads"] = int(np.minimum(work[:, 2], live.numpy()).sum())
+    return out
+
+
+def backtrack_ops(work: dict) -> dict:
+    """int32 operations for the backtrack's work (`backtrack_work`)."""
+    return {"int32": float(sum(per * work[k] for k, per in BACKTRACK_COST.items()))}
+
+
+def backtrack_bytes(work: dict, b: int) -> float:
+    """The bytes the backtrack must move, each once: f of every live anchor
+    (to find the candidates), p of the anchors the walks pass, tpos and qpos
+    of each kept anchor, n_anchors; v of each kept anchor, six chain rows a
+    kept chain, three counts a read."""
+    return (4.0 * work["live"] + 4.0 * work["p_reads"] + 8.0 * work["v_writes"]
+            + 4.0 * b + 4.0 * work["v_writes"] + 24.0 * work["kept"] + 12.0 * b)

@@ -1,6 +1,7 @@
 """The kernel bounds (rawhash_tpu_torch/profiling/bounds.py): each class of
-work at its own H100 rate, and K1's pair counts against a pair-by-pair walk
-of each anchor's in-band suffix through chain_fill.cuh's per-slot score."""
+work at its own H100 rate, K1's pair counts against a pair-by-pair walk
+of each anchor's in-band suffix through chain_fill.cuh's per-slot score,
+and the backtrack's work against a step-by-step count of its algorithm."""
 
 import numpy as np
 import pytest
@@ -8,13 +9,17 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)  # small tensors; xdist workers share the cores
 
+from rawhash_tpu_torch.chain.device import chain_fill_batch  # noqa: E402
 from rawhash_tpu_torch.map.engine import fill_params  # noqa: E402
 from rawhash_tpu_torch.profiling import bounds  # noqa: E402
 from rawhash_tpu_torch.profiling.bounds import (  # noqa: E402
-    FILL_COST, bound, fill_ops, fill_work,
+    BACKTRACK_COST, FILL_COST, backtrack_bytes, backtrack_ops, backtrack_work,
+    bound, fill_ops, fill_work,
 )
 from rawhash_tpu_torch.profiling.fill_loop_overhead import probe_bound  # noqa: E402
-from rawhash_tpu_torch.synthetic import options  # noqa: E402
+from rawhash_tpu_torch.synthetic import (  # noqa: E402
+    options, random_chains, sparse_anchors,
+)
 
 HZ = 1.98e9
 INT32_PER_S = 132 * 64 * HZ
@@ -114,3 +119,80 @@ def test_fill_work_counts_in_band_pairs_past_the_suffix():
     # anchors 3-5 reach 0 and 1 only past anchor 2 (out of band): 2 + 2 + 2
     assert got["unsorted"] == 6
     assert got["in_band"] - got["unsorted"] == _walk(key, tpos, qpos, n_anchors, **prm)["in_band"]
+
+
+def _backtrack_steps(f, p, n_anchors, tpos, qpos, *, min_cnt, min_sc, max_drop,
+                     k_cap, **_):
+    """The backtrack's work counted one step at a time (mg_chain_backtrack,
+    lchain.c:95-194), per row: candidates visited, skipped as claimed,
+    walk-A steps, claim steps, kept chains, anchors kept."""
+    rows = []
+    for r in range(f.shape[0]):
+        m = min(int(n_anchors[r]), f.shape[1])
+        fr, pr = [int(x) for x in f[r]], [int(x) for x in p[r]]
+        order = sorted((fr[i], i) for i in range(m) if fr[i] >= min_sc)
+        claimed = set()
+        c = dict.fromkeys(("candidates", "skipped", "walk_steps",
+                           "claim_steps", "kept", "v_writes"), 0)
+        for zsc, idx in reversed(order):
+            c["candidates"] += 1
+            if idx in claimed:
+                c["skipped"] += 1
+                continue
+            i, end_i, max_s, cbest, step = idx, idx, 0, 0, 0
+            while True:
+                step += 1
+                c["walk_steps"] += 1
+                ni = pr[i]
+                s = zsc if ni < 0 else zsc - fr[ni]
+                if s > max_s:
+                    max_s, end_i, cbest = s, ni, step
+                elif max_s - s > max_drop:
+                    break
+                if ni < 0 or ni in claimed:
+                    break
+                i = ni
+            j = idx
+            while j != end_i:
+                claimed.add(j)
+                c["claim_steps"] += 1
+                j = pr[j]
+            if max_s >= min_sc and cbest > 0 and cbest >= min_cnt and c["kept"] < k_cap:
+                c["kept"] += 1
+                c["v_writes"] += cbest
+        rows.append(c)
+    return rows
+
+
+def _sparse_chains(seed, b, n):
+    prm = fill_params(*options("sensitive"))
+    key, tpos, qpos, n_anchors = (
+        torch.from_numpy(np.ascontiguousarray(x).view(np.int32))
+        for x in sparse_anchors(seed, b, n))
+    f, p = chain_fill_batch(key, tpos, qpos, n_anchors, **prm)
+    return f.numpy(), p.numpy(), n_anchors.numpy(), tpos.numpy(), qpos.numpy()
+
+
+@pytest.mark.parametrize("rows,k_cap", [("random", 64), ("random", 3),
+                                        ("sparse", 1024)])
+def test_backtrack_work_counts_every_step(rows, k_cap):
+    """backtrack_work (the header's serial algorithm, g++) against a count
+    of each visit and step, and the bound's bytes and operations from it."""
+    if rows == "random":
+        args = random_chains(5, 3, 2000, 80, min_sc=15)
+    else:
+        args = _sparse_chains(7, 2, 1500)
+    prm = dict(min_cnt=2, min_sc=15, max_drop=500, k_cap=k_cap, q_span=13)
+    got = backtrack_work(*(torch.from_numpy(np.asarray(a)) for a in args), **prm)
+    want = _backtrack_steps(*args, **prm)
+    for k in ("candidates", "skipped", "walk_steps", "claim_steps", "kept",
+              "v_writes"):
+        assert got[k] == sum(c[k] for c in want), k
+    assert got["serial_steps_max"] == max(
+        c["candidates"] + c["walk_steps"] + c["claim_steps"] for c in want)
+    assert got["live"] == int(np.minimum(args[2], args[0].shape[1]).sum())
+    assert 0 < got["skipped"] < got["candidates"] and got["kept"] > 0
+    assert got["p_reads"] <= min(got["walk_steps"], got["live"])
+    assert backtrack_ops(got)["int32"] == sum(
+        per * got[k] for k, per in BACKTRACK_COST.items())
+    assert backtrack_bytes(got, 3) > 4 * got["live"]

@@ -12,7 +12,10 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)  # small tensors; xdist workers share the cores
 
-from rawhash_tpu_torch.chain.backtrack import chain_backtrack  # noqa: E402
+from rawhash_tpu_torch.chain.backtrack import (  # noqa: E402
+    DEPTH, MAX_WIDTH, SMEM_MAX, backtrack_launch, candidate_order,
+    chain_backtrack, launch_depth, shared_bytes,
+)
 from rawhash_tpu_torch.chain.backtrack_device import backtrack_plain  # noqa: E402
 from rawhash_tpu_torch.chain.device import chain_fill_batch  # noqa: E402
 from rawhash_tpu_torch.chain.fill import MAX_ITER_CAP, chain_fill  # noqa: E402
@@ -110,6 +113,59 @@ def test_chain_backtrack_kernel_matches_plain(cuda_device, n, k_cap):
     assert int(got[2].min()) > 0
     if k_cap < 10:
         assert int(got[5].min()) > 0
+
+
+def staging_threshold() -> int:
+    """The most live anchors a row may have for the claimed bits and the
+    staging buffer of the default depth to fit in shared memory."""
+    a = (SMEM_MAX - shared_bytes(1, DEPTH) + 4) // 4 * 32
+    assert shared_bytes(a, DEPTH) <= SMEM_MAX < shared_bytes(a + 1, DEPTH)
+    return a
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("side", ["below", "at", "above", "max_width"])
+def test_chain_backtrack_kernel_at_the_staging_threshold(cuda_device, side):
+    """Rows whose most live anchors leave the staging buffer of the default
+    depth room (below the threshold, at it), or less (one past it: a
+    shallower depth; MAX_WIDTH: depth 0, no walk staged)."""
+    thr = staging_threshold()
+    a = {"below": thr - 50000, "at": thr, "above": thr + 1,
+         "max_width": MAX_WIDTH}[side]
+    args = [torch.from_numpy(x).to(cuda_device)
+            for x in random_chains(a % 1000, 2, a, 120)]
+    args[2] = torch.tensor([a, a - 7], dtype=torch.int32, device=cuda_device)
+    depth = launch_depth(a)
+    assert (depth == DEPTH) == (side in ("below", "at"))
+    assert (depth == 0) == (side == "max_width")
+    before = chain_backtrack.launches
+    got = chain_backtrack(*args, **BT, k_cap=256)
+    want = backtrack_plain(*args, **BT, k_cap=256)
+    torch.cuda.synchronize()
+    assert chain_backtrack.launches == before + 1
+    for x, y in zip(want, got):
+        assert torch.equal(x, y)
+    assert int(got[2].min()) > 0 and int(got[9].max()) > a - 1200
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [0, 1, 2, 8, 16, 32])
+def test_chain_backtrack_kernel_depths_match_plain(cuda_device, depth):
+    """The kernel at each staging depth on clustered rows (long walks,
+    paths shared inside a round) from the fill kernel."""
+    prm = fill_params(*options("sensitive"))
+    key, tpos, qpos, n_anchors = (torch.from_numpy(x).to(cuda_device)
+                                  for x in clustered_anchors(3, 8, 4096))
+    f, p = chain_fill(key, tpos, qpos, n_anchors, **prm)
+    bt = dict(BT, min_sc=15)
+    order = candidate_order(f, n_anchors, bt["min_sc"])
+    before = chain_backtrack.launches
+    got = backtrack_launch(f, p, tpos, qpos, order, **bt, k_cap=1024, depth=depth)
+    want = backtrack_plain(f, p, n_anchors, tpos, qpos, **bt, k_cap=1024)
+    torch.cuda.synchronize()
+    assert chain_backtrack.launches == before  # variants are not counted
+    for x, y in zip(want, got):
+        assert torch.equal(x, y)
 
 
 @pytest.mark.cuda
