@@ -36,7 +36,11 @@ Phases, each printed as one JSON line and each fatal on failure:
                --device cuda vs --device cpu: same mapped reads, same PAF
                columns 1, 5 and 6, column 8 within 20; and on cuda with
                RAWHASH_TPU_DEVICE_TAIL=1: PAF columns 1-12 of the mapped
-               rows equal to the host tail's
+               rows equal to the host tail's; then, cuda vs cpu, the
+               all-vs-all fixture (5 overlapping reads, `-x ava-viral`,
+               index built with --sig-target) reports the same overlap
+               pairs, --out-quantize prints the same bytes, and
+               --sequence-until stops at the same read
   7. d1        SARS-CoV-2-sized deployment: 30 kb genome, viral preset,
                5 x 256 reads of 1200 bases; stays on the host tail
   8. d2        E. coli-sized deployment: 5 Mbp genome, sensitive preset,
@@ -62,10 +66,33 @@ Phases, each printed as one JSON line and each fatal on failure:
                bit-equal to chain_fill's f/p, then timed in turns (median
                of 5, forward and reverse order, twice); with each input's
                chain segments
-Phases 6-9 are the main-path run: each resets the kernels' launch counters
-just before it and reads them just after; every kernel must have launched
-in it.  Phases 7-9 need >= 95% of reads mapped at accuracy >= 0.95 (strand
-right, mapped target interval inside the read's true interval +/- 200).
+ 12. ava       all-vs-all overlapping (Rawsamble), `-x ava`: 512 reads of
+               3000 bases from a 250 kb genome (seed 23, random strands,
+               about 6x coverage, made as bench.py's ava workload), the
+               index built from the reads' signals, mapped in 2 x 256 on
+               the engine's own tail choice; precision and recall of the
+               overlap pairs as bench.py counts them (min_ov 450); the
+               engine must take the device tail; no record with a query
+               name at or after its target's
+     ava_tails the first 64 ava reads again on the forced host tail and the
+               forced device tail, PAF columns 1-12 equal
+     ava_kernels both kernels on ava's widest device-tail call, as
+               d4_kernels (8 rows held), with the ava preset's parameters
+ 13. ava_quality bench.py's own ava workload unchanged (120 reads of 1500
+               bases, 60 kb, seed 23, `-x ava-viral`, --max-anchors 2048):
+               precision >= 0.12 and recall >= 0.65
+ 14. dtw       D1's genome indexed with --store-sig, `-x viral
+               --dtw-evaluate-chains`, 1 x 256 reads; every dtw_banded_batch
+               call timed (CUDA events), the widest one run again on CPU
+               copies: max relative difference <= 1e-4
+ 15. rmq, bw_long D1 with --rmq, then with --bw-long at 5x the preset's --bw,
+               1 x 256 reads each
+Phases 6-9 and 12-15 (not the *_kernels checks) are the main-path run:
+each resets the kernels' launch counters just before it and reads them
+just after; every kernel of its path must have launched in it (ava's and
+ava_tails's: the fill and the backtrack).  Phases 7-9, 14 and 15 need >= 95% of reads mapped at accuracy
+>= 0.95 (strand right, mapped target interval inside the read's true
+interval +/- 200).
 The line before the card's line lists every kernel with its launches, error
 and times beside its bound (rawhash_tpu_torch/profiling/bounds.py: bytes,
 fp32, int32 and conversions each at the H100's own rate, the largest time);
@@ -373,9 +400,10 @@ def held_rows(n_anchors, rows: int):
     return np.argsort(-na, kind="stable")[np.linspace(0, b - 1, rows).astype(int)]
 
 
-def phase_tail_kernels(torch, name, caught, *, rows=None, fill=False) -> dict:
+def phase_tail_kernels(torch, name, caught, *, rows=None, fill=False,
+                       preset="sensitive") -> dict:
     """The kernels on the inputs a cell's main path gave them: its widest
-    tail_finish call, caught there.  The backtrack (and, with `fill`, the
+    tail_finish call, caught there, with the cell's `preset`.  The backtrack (and, with `fill`, the
     fill) is timed at that whole shape; its outputs on `rows` of its rows
     (the widest, the narrowest and others evenly between them by live
     anchors; all rows if None), at full width, are held bit for bit against
@@ -385,7 +413,7 @@ def phase_tail_kernels(torch, name, caught, *, rows=None, fill=False) -> dict:
     from rawhash_tpu_torch.map.engine import fill_params
     from rawhash_tpu_torch.synthetic import options
 
-    io, mo = options("sensitive")
+    io, mo = options(preset)
     prm = fill_params(io, mo)
     bt = backtrack_params(mo, prm)
     out, k_cap, p_out = caught["out"], caught["k_cap"], caught["p_out"]
@@ -645,31 +673,75 @@ def phase_fixture(d: Path) -> dict:
         check(tail_same, "fixture: the device tail's PAF columns 1-12 differ "
               "from the host tail's on cuda")
         out[preset] = len(rows["cuda"])
+    out.update(fixture_modes(d, cli))
     return out
 
 
-def phase_deployment(torch, dev, name, genome_len, preset, n_batches,
-                     read_len, max_anchors, seed, caught) -> dict:
-    """Build the index and map n_batches x 256 simulated reads on the card
-    through the engine's streaming entry point.  The run's widest fill call
-    (copies of its tensors, its keyword arguments) is kept in
-    caught["fill"], and its widest device-tail call (its ChunkOut `out`,
-    `k_cap` and `p_out`) in caught["tail"]."""
-    from rawhash_tpu_torch.chain.backtrack import chain_backtrack
+def fixture_modes(d: Path, cli) -> dict:
+    """The other modes on small fixtures through the CLI, --device cuda
+    against --device cpu: all-vs-all (the same overlap pairs),
+    --out-quantize (the same bytes), --sequence-until (the same stopping
+    read)."""
+    from rawhash_tpu_torch.io.sigfile import write_sig_npz
+    from rawhash_tpu_torch.synthetic import ava_fixture_reads
+
+    write_sig_npz(str(d / "ava_reads.sig.npz"), ava_fixture_reads())
+    ava_idx = str(d / "ava.rhi.npz")
+    check(cli(["-x", "ava-viral", "--sig-target", "-d", ava_idx,
+               str(d / "ava_reads.sig.npz"), "--device", "cuda"]) == 0,
+          "fixture: the all-vs-all index build failed")
+    runs = {
+        "ava": ["-x", "ava-viral", "--max-anchors", "512", ava_idx,
+                str(d / "ava_reads.sig.npz")],
+        "out_quantize": ["-x", "sensitive", "--out-quantize", str(d / "reads.sig.npz")],
+        "sequence_until": ["-x", "sequence-until", "--sequence-until",
+                           "--min-reads", "1", "--test-frequency", "1",
+                           "--n-samples", "2", "--batch-reads", "2",
+                           "--max-anchors", "512", str(d / "ref_sensitive.rhi.npz"),
+                           str(d / "reads.sig.npz")],
+    }
+    got = {}
+    for mode, args in runs.items():
+        for device in ("cuda", "cpu"):
+            path = d / f"{mode}_{device}.out"
+            t0 = time.perf_counter()
+            check(cli(args + ["--device", device, "-o", str(path)]) == 0,
+                  f"fixture {mode} on {device} failed")
+            got[mode, device] = (path.read_bytes(), time.perf_counter() - t0)
+    pairs = {dev: sorted({(c[0], c[5]) for c in (l.split("\t") for l in
+                          got["ava", dev][0].decode().splitlines()) if c[5] != "*"})
+             for dev in ("cuda", "cpu")}
+    stops = {dev: [l.split("\t")[0] for l in
+                   got["sequence_until", dev][0].decode().splitlines()]
+             for dev in ("cuda", "cpu")}
+    row = {"ava_pairs_cuda": pairs["cuda"], "ava_pairs_cpu": pairs["cpu"],
+           "out_quantize_bytes": len(got["out_quantize", "cuda"][0]),
+           "out_quantize_same": got["out_quantize", "cuda"][0] == got["out_quantize", "cpu"][0],
+           "sequence_until_reads_cuda": len(stops["cuda"]),
+           "sequence_until_reads_cpu": len(stops["cpu"]),
+           **{f"seconds_{m}_{dev}": t for (m, dev), (_, t) in got.items()}}
+    emit({"phase": "fixture_modes", **row})
+    check(pairs["cuda"] == pairs["cpu"] and len(pairs["cuda"]) >= 2,
+          "fixture: all-vs-all overlap pairs differ between cuda and cpu (or < 2)")
+    check(row["out_quantize_same"], "fixture: --out-quantize output differs")
+    check(stops["cuda"] == stops["cpu"] and 0 < len(stops["cuda"]) < 6,
+          "fixture: --sequence-until stopped at another read (or not at all)")
+    return {"ava_pairs": len(pairs["cuda"]),
+            "sequence_until_reads": len(stops["cuda"])}
+
+
+def catch_widest(caught, also=None):
+    """Spies on device_step.chain_fill and engine.tail_finish that keep a
+    run's widest fill call (copies of its tensors, its keyword arguments) in
+    caught["fill"] and its widest device-tail call (its ChunkOut `out`,
+    `k_cap` and `p_out`) in caught["tail"]; `also(fill arguments)` sees
+    every fill call.  Returns the originals, which the caller puts back."""
     from rawhash_tpu_torch.map import device_step
     from rawhash_tpu_torch.map import engine as eng_mod
-    from rawhash_tpu_torch.synthetic import deployment
-
-    t0 = time.perf_counter()
-    setup = {}
-    index, mopt, reads = deployment(genome_len, preset, n_batches * 256,
-                                    read_len, max_anchors, seed, seconds=setup)
-    t_setup = time.perf_counter() - t0
-    batches = [[(n, s) for n, s, _, _ in reads[i:i + 256]]
-               for i in range(0, len(reads), 256)]
-    engine = eng_mod.MappingEngine(index, mopt, device=dev)
 
     def widest_fill(_, fn, a, k):
+        if also is not None:
+            also(a)
         if "fill" not in caught or a[0].shape[1] >= caught["fill"][0][0].shape[1]:
             caught["fill"] = ([t.clone() for t in a], dict(k))
 
@@ -677,16 +749,45 @@ def phase_deployment(torch, dev, name, genome_len, preset, n_batches,
         if "tail" not in caught or a[0].f.shape[1] >= caught["tail"]["out"].f.shape[1]:
             caught["tail"] = dict(out=a[0], k_cap=k["k_cap"], p_out=k["p_out"])
 
-    originals = {(device_step, "chain_fill"): spy(device_step, "chain_fill", widest_fill),
-                 (eng_mod, "tail_finish"): spy(eng_mod, "tail_finish", widest_tail)}
+    return {(device_step, "chain_fill"): spy(device_step, "chain_fill", widest_fill),
+            (eng_mod, "tail_finish"): spy(eng_mod, "tail_finish", widest_tail)}
+
+
+def put_back(originals) -> None:
+    for (mod, attr), fn in originals.items():
+        setattr(mod, attr, fn)
+
+
+def phase_deployment(torch, dev, name, genome_len, preset, n_batches,
+                     read_len, max_anchors, seed, caught, store_sig=False,
+                     configure=None) -> dict:
+    """Build the index and map n_batches x 256 simulated reads on the card
+    through the engine's streaming entry point.  The run's widest fill and
+    device-tail calls are kept in `caught` (catch_widest).  `store_sig` keeps the expected
+    signal in the index (for DTW); `configure(mopt)` sets the run's mode."""
+    from rawhash_tpu_torch.chain.backtrack import chain_backtrack
+    from rawhash_tpu_torch.map import engine as eng_mod
+    from rawhash_tpu_torch.synthetic import deployment
+
+    t0 = time.perf_counter()
+    setup = {}
+    index, mopt, reads = deployment(genome_len, preset, n_batches * 256,
+                                    read_len, max_anchors, seed, seconds=setup,
+                                    store_sig=store_sig)
+    if configure is not None:
+        configure(mopt)
+    t_setup = time.perf_counter() - t0
+    batches = [[(n, s) for n, s, _, _ in reads[i:i + 256]]
+               for i in range(0, len(reads), 256)]
+    engine = eng_mod.MappingEngine(index, mopt, device=dev)
+    originals = catch_widest(caught)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     try:
         results = [r for batch in engine.map_stream(batches) for r in batch]
     finally:
-        for (mod, attr), fn in originals.items():
-            setattr(mod, attr, fn)
+        put_back(originals)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
 
@@ -724,6 +825,194 @@ def phase_deployment(torch, dev, name, genome_len, preset, n_batches,
     emit({"phase": name, "preset": preset, "genome_len": genome_len, **row})
     check(row["mapped_frac"] >= 0.95, f"{name}: mapped {n_mapped}/{len(reads)}")
     check(row["accuracy"] >= 0.95, f"{name}: accuracy {row['accuracy']:.3f}")
+    return row
+
+
+# the ava cell: 512 reads of 3000 bases cover a 250 kb genome about 6x,
+# the least depth a de-novo assembly uses
+AVA = dict(n_reads=512, genome_len=250_000, read_len=3000, seed=23)
+
+
+def phase_ava(torch, dev, caught) -> dict:
+    """All-vs-all overlapping at full width: the `ava` preset on the AVA
+    reads, the index built from their signals, mapped 256 reads at a time
+    on the engine's own tail choice.  The run's widest fill and device-tail
+    calls are kept in `caught` (catch_widest), and (index, options, reads)
+    in caught["rerun"] for phase_ava_tails."""
+    from rawhash_tpu_torch.chain.backtrack import chain_backtrack
+    from rawhash_tpu_torch.index.build import build_index_from_signals
+    from rawhash_tpu_torch.map.engine import MappingEngine
+    from rawhash_tpu_torch.synthetic import options, overlap_quality, overlap_workload
+
+    t0 = time.perf_counter()
+    reads, truth_any, truth_sub = overlap_workload(**AVA)
+    t_reads = time.perf_counter() - t0
+    io, mo = options("ava")
+    mo.batch_reads = 256
+    t0 = time.perf_counter()
+    index = build_index_from_signals(reads, None, io)
+    t_index = time.perf_counter() - t0
+    check(index.sig_target and index.n_seq == len(reads), "ava: not a signal-target index")
+    engine = MappingEngine(index, mo, device=dev)
+    fills = []  # each fill call's live anchors a read
+    originals = catch_widest(caught, lambda a: fills.append(a[3].cpu().numpy()))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        batches = [reads[i:i + 256] for i in range(0, len(reads), 256)]
+        results = [r for batch in engine.map_stream(batches) for r in batch]
+    finally:
+        put_back(originals)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    caught["rerun"] = (index, mo, reads[:64])
+
+    pred, ranked_wrong, n_records = set(), [], 0
+    for res in results:
+        for rec in res.records:
+            if rec.mapped:
+                n_records += 1
+                target = index.seq_names[rec.ref_id]
+                if res.name >= target:
+                    ranked_wrong.append((res.name, target))
+                pred.add((min(res.name, target), max(res.name, target)))
+    precision, recall = overlap_quality(pred, truth_any, truth_sub)
+    live = np.concatenate(fills)
+    live = live[live > 0]
+    bases = sum(s.shape[0] for _, s in reads) / mo.sample_per_base
+    row = dict(
+        **AVA, coverage=AVA["n_reads"] * AVA["read_len"] / AVA["genome_len"],
+        seconds=dt, reads_per_s=len(reads) / dt, bp_per_s=bases / dt,
+        reads_s=t_reads, index_build_s=t_index, index_seeds=index.n_seeds,
+        anchors_per_read_min=int(live.min()), anchors_per_read_max=int(live.max()),
+        fill_calls=len(fills), backtrack_max_width=chain_backtrack.max_width,
+        device_tail=engine.device_tail, tail_switch_anchors=engine.tail_switch_anchors,
+        device_tail_chunks=engine.stats["tail_chunks"],
+        stage_seconds=dict(engine.profiler.totals),
+        stage_counts=dict(engine.profiler.counts),
+        anchor_regrows=engine.stats["anchor_regrows"],
+        hit_overflow=engine.stats["hit_overflow"],
+        chain_overflow=engine.stats["chain_overflow"],
+        mapped_records=n_records, predicted_pairs=len(pred),
+        true_pairs_any=len(truth_any), true_pairs_min_ov=len(truth_sub),
+        precision=precision, recall=recall,
+        query_ranked_at_or_after_target=ranked_wrong[:10],
+    )
+    emit({"phase": "ava", **row})
+    check(engine.device_tail and engine.stats["tail_chunks"] > 0,
+          "ava: the engine did not switch to the device tail")
+    check(not ranked_wrong, f"ava: {len(ranked_wrong)} records with the query "
+          "name at or after the target's")
+    check(len(pred) > 0, "ava: no overlap found")
+    return row
+
+
+def phase_ava_tails(torch, dev, rerun) -> dict:
+    """The ava cell's first 64 reads again, once on each forced tail
+    (RAWHASH_TPU_NO_DEVICE_TAIL=1, then RAWHASH_TPU_DEVICE_TAIL=1), through
+    map_batch; their PAF columns 1-12 must be equal."""
+    from rawhash_tpu_torch.io.paf import paf_lines
+    from rawhash_tpu_torch.map.engine import MappingEngine
+
+    index, mo, reads = rerun
+    pafs = {}
+    for var in ("RAWHASH_TPU_NO_DEVICE_TAIL", "RAWHASH_TPU_DEVICE_TAIL"):
+        os.environ[var] = "1"
+        try:
+            eng = MappingEngine(index, mo, device=dev)
+            pafs[var] = [line.split("\t")[:12] for res in eng.map_batch(reads)
+                         for line in paf_lines(res, index)]
+        finally:
+            os.environ.pop(var)
+    same = pafs["RAWHASH_TPU_NO_DEVICE_TAIL"] == pafs["RAWHASH_TPU_DEVICE_TAIL"]
+    row = dict(reads=len(reads), records=len(pafs["RAWHASH_TPU_DEVICE_TAIL"]),
+               paf_equal=same)
+    emit({"phase": "ava_tails", **row})
+    check(same, "ava: the host tail's and the device tail's PAF columns 1-12 "
+          "differ on the first 64 reads")
+    return row
+
+
+def phase_ava_quality(torch, dev) -> dict:
+    """bench.py's all-vs-all workload unchanged: 120 reads of 1500 bases
+    from a 60 kb genome (seed 23), `-x ava-viral`, --max-anchors 2048,
+    mapped 64 reads at a time; the overlap pairs' precision and recall."""
+    from rawhash_tpu_torch.index.build import build_index_from_signals
+    from rawhash_tpu_torch.map.engine import MappingEngine
+    from rawhash_tpu_torch.synthetic import options, overlap_quality, overlap_workload
+
+    reads, truth_any, truth_sub = overlap_workload(120, 60_000, 1500, 23)
+    io, mo = options("ava-viral")
+    mo.max_anchors_per_read = 2048
+    index = build_index_from_signals(reads, None, io)
+    engine = MappingEngine(index, mo, device=dev)
+    t0 = time.perf_counter()
+    pred = set()
+    for i in range(0, len(reads), 64):
+        for res in engine.map_batch(reads[i:i + 64]):
+            for rec in res.records:
+                if rec.mapped:
+                    a, b = res.name, index.seq_names[rec.ref_id]
+                    pred.add((min(a, b), max(a, b)))
+    torch.cuda.synchronize()
+    precision, recall = overlap_quality(pred, truth_any, truth_sub)
+    row = dict(reads=len(reads), seconds=time.perf_counter() - t0,
+               predicted_pairs=len(pred), true_pairs_min_ov=len(truth_sub),
+               precision=precision, recall=recall,
+               device_tail_chunks=engine.stats["tail_chunks"])
+    emit({"phase": "ava_quality", **row})
+    check(precision >= 0.12 and recall >= 0.65,
+          f"ava_quality: precision {precision} (>= 0.12) or recall {recall} "
+          "(>= 0.65) too low")
+    return row
+
+
+def phase_dtw(torch, dev) -> dict:
+    """D1's genome indexed with --store-sig and mapped with
+    --dtw-evaluate-chains (1 x 256 reads); each dtw_banded_batch call timed
+    with CUDA events, and the widest call (pairs x length x radius) run
+    again on CPU copies of its inputs."""
+    from rawhash_tpu_torch.config import MapFlag
+    from rawhash_tpu_torch.dtw import device as dtw_device
+
+    fn = dtw_device.dtw_banded_batch
+    calls = []
+
+    def timed(*a, **k):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        out = fn(*a, **k)
+        e.record()
+        calls.append((s, e, a, k, out))
+        return out
+
+    def dtw_mode(mo):
+        mo.flag |= MapFlag.DTW_EVALUATE_CHAINS
+
+    dtw_device.dtw_banded_batch = timed
+    try:
+        row = phase_deployment(torch, dev, "dtw", 30_000, "viral", 1, 1200, 3072, 7,
+                               {}, store_sig=True, configure=dtw_mode)
+    finally:
+        dtw_device.dtw_banded_batch = fn
+    check(calls, "dtw: dtw_banded_batch was never called")
+    torch.cuda.synchronize()
+    ms = [s.elapsed_time(e) for s, e, *_ in calls]
+
+    def work(c):
+        a, k = c[2], c[3]
+        return a[0].shape[0] * a[0].shape[1] * k["max_radius"]
+
+    _, _, a, k, got = max(calls, key=work)
+    want = fn(*(t.cpu() for t in a), **k)
+    rel = float(((got.cpu() - want).abs() / want.abs().clamp_min(1e-6)).max())
+    out = dict(calls=len(calls), total_ms=float(sum(ms)), median_ms=float(np.median(ms)),
+               widest_pairs=a[0].shape[0], widest_max_len=a[0].shape[1],
+               widest_max_radius=k["max_radius"], widest_max_rel_diff_vs_cpu=rel,
+               share_of_cell=sum(ms) / 1e3 / row["seconds"])
+    emit({"phase": "dtw_banded_batch", **out})
+    check(rel <= 1e-4, f"dtw: the card's costs differ from the CPU's by {rel} relative")
+    row["dtw_banded_batch"] = out
     return row
 
 
@@ -768,6 +1057,7 @@ def main() -> int:
         from rawhash_tpu_torch import _build
         from rawhash_tpu_torch.chain.backtrack import chain_backtrack
         from rawhash_tpu_torch.chain.fill import chain_fill
+        from rawhash_tpu_torch.config import MapFlag
         from rawhash_tpu_torch.profiling.bounds import sm_clock
 
         t0 = time.perf_counter()
@@ -802,7 +1092,7 @@ def main() -> int:
             runs[name] = main_path(
                 name, lambda: phase_deployment(torch, dev, name, *cell,
                                                caught[name]), counters)
-        (d1, n1), (d2, n2), (d4, n4) = (runs[c] for c in cells)
+        (d1, _), (d2, n2), (d4, n4) = (runs[c] for c in cells)
         # the kernels on each device-tail cell's own widest tail call: D2's
         # backtrack held on all its rows, D4's fill and backtrack on 8
         for name, rows, fill in (("d2", None, False), ("d4", 8, True)):
@@ -818,15 +1108,45 @@ def main() -> int:
             torch, dev, {c: caught[c].pop("fill") for c in cells})
         caught.clear()
         emit({"phase": "fill_warps_done", "seconds": time.perf_counter() - t0})
+
+        # the other mapping modes: all-vs-all, DTW, RMQ, --bw-long
+        def long_gaps(mo):
+            mo.bw_long = 5 * mo.bw
+
+        def rmq_mode(mo):
+            mo.flag |= MapFlag.RMQ
+
+        ava = {}  # the ava cell's widest fill/tail calls, and its reruns' inputs
+        modes = {
+            "ava": lambda: phase_ava(torch, dev, ava),
+            "ava_tails": lambda: phase_ava_tails(torch, dev, ava.pop("rerun")),
+            "ava_quality": lambda: phase_ava_quality(torch, dev),
+            "dtw": lambda: phase_dtw(torch, dev),
+            "rmq": lambda: phase_deployment(torch, dev, "rmq", 30_000, "viral", 1,
+                                            1200, 3072, 7, {}, configure=rmq_mode),
+            "bw_long": lambda: phase_deployment(torch, dev, "bw_long", 30_000, "viral",
+                                                1, 1200, 3072, 7, {}, configure=long_gaps),
+        }
+        for name, fn in modes.items():
+            runs[name] = main_path(name, fn, counters)
+        # the kernels on ava's own widest tail call: the fill and the
+        # backtrack, 8 rows held
+        check("tail" in ava, "ava: no device-tail call to check the kernels on")
+        t0 = time.perf_counter()
+        timed["ava_kernels"] = phase_tail_kernels(
+            torch, "ava", ava.pop("tail"), rows=8, fill=True, preset="ava")
+        ava.clear()
+        emit({"phase": "ava_kernels_done", "seconds": time.perf_counter() - t0})
         check(not d1["device_tail"] and d1["device_tail_chunks"] == 0,
               "d1: the viral cell left the host tail")
         check(d2["device_tail"] and d2["device_tail_chunks"] > 0,
               "d2: the E. coli cell did not switch to the device tail")
         check(d4["backtrack_max_width"] > 32768,
               f"d4: widest backtrack {d4['backtrack_max_width']} <= 32768")
-        for name, n in (("fixture", runs["fixture"][1]),
-                        ("d1", {"chain_fill": n1["chain_fill"]}), ("d2", n2),
-                        ("d4", n4)):
+        fill_only = ("d1", "ava_quality", "dtw", "rmq", "bw_long")
+        for name, n in (("fixture", runs["fixture"][1]), ("d2", n2), ("d4", n4),
+                        ("ava", runs["ava"][1]), ("ava_tails", runs["ava_tails"][1]),
+                        *((c, {"chain_fill": runs[c][1]["chain_fill"]}) for c in fill_only)):
             check(all(v > 0 for v in n.values()),
                   f"{name}: a kernel of its path was not launched: {n}")
         launches = {k: sum(n[k] for _, n in runs.values()) for k in counters}
@@ -836,35 +1156,39 @@ def main() -> int:
         k1 = timed["k1"]
         main_shape = next(r for r in k1 if r["preset"] == "sensitive" and r["n"] == 16384)
         d4f = timed["d4_kernels"]["fill"]
+        avaf = timed["ava_kernels"]["fill"]
         kernels = [{
             "name": "chain_fill", "route": "cuda",
             "source": "rawhash_tpu_torch/csrc/chain_fill.cu",
             "replaces": "rawhash_tpu/chain/pallas_fill.py:226",
             "launches": launches["chain_fill"],
-            "max_abs_err": max(r["max_abs_err"]
-                               for r in k1 + [timed["d4_kernels"]["fill"]]),
+            "max_abs_err": max(r["max_abs_err"] for r in k1 + [d4f, avaf]),
             "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
             "bound_ms": main_shape["bound_ms"], "bound_by": bound_by(main_shape),
             "library_ms": None,
-            # the same kernel at D4's main-path inputs (plain: its held rows)
-            "d4": {k: d4f[k] for k in ("ms", "plain_ms", "bound_ms", "segments")},
+            # the same kernel at D4's and ava's main-path inputs (plain:
+            # their held rows)
+            **{c: {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "segments")}
+               for c, r in (("d4", d4f), ("ava", avaf))},
         }]
         # one kernel for both TPU kernels: K2's row at the D2 regime
         # (B=256, N=16384); K3's at D4's main-path inputs past 32768 (the
         # kernel on the whole batch, the plain version on its held rows)
-        # (K2's row also at D2's main-path inputs, all rows held)
+        # (K2's row also at D2's main-path inputs, all rows held; K3's also
+        # at ava's, past 32768 too, 8 rows held)
         bt = timed["backtrack"]
         d2k = timed["d2_kernels"]["backtrack"]
         d4k = timed["d4_kernels"]["backtrack"]
+        avak = timed["ava_kernels"]["backtrack"]
         for replaces, shape, extra in (
                 ("rawhash_tpu/chain/backtrack_pallas.py:147", bt[0], {"d2": d2k}),
-                ("rawhash_tpu/chain/backtrack_pallas_big.py:361", d4k, {})):
+                ("rawhash_tpu/chain/backtrack_pallas_big.py:361", d4k, {"ava": avak})):
             kernels.append({
                 "name": "chain_backtrack", "route": "cuda",
                 "source": "rawhash_tpu_torch/csrc/chain_backtrack.cu",
                 "replaces": replaces,
                 "launches": launches["chain_backtrack"],
-                "max_abs_err": max(r["max_abs_err"] for r in bt + [d2k, d4k]),
+                "max_abs_err": max(r["max_abs_err"] for r in bt + [d2k, d4k, avak]),
                 "ms": shape["ms"], "plain_ms": shape["plain_ms"],
                 "bound_ms": shape["bound_ms"], "bound_by": bound_by(shape),
                 "library_ms": None,
@@ -886,7 +1210,8 @@ def main() -> int:
             "library_ms": None,
         })
         emit({"kernels": kernels,
-              **{f"{c}_bp_per_s": runs[c][0]["bp_per_s"] for c in cells},
+              **{f"{c}_bp_per_s": runs[c][0]["bp_per_s"]
+                 for c in (*cells, "ava", "dtw", "rmq", "bw_long")},
               "seconds": time.perf_counter() - t_all})
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

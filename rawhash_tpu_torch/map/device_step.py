@@ -21,7 +21,7 @@ import torch
 from ..chain.backtrack import chain_backtrack, compact_from_chain_stats
 from ..chain.fill import chain_fill
 from ..index.device import DeviceIndex, expand_hits, lookup_counts
-from ..signal.events import NormCarry, detect_events_batch
+from ..signal.events import NormCarry, dense_compact, detect_events_batch
 from ..sketch.device import sketch_batch
 
 U32_MAX = 0xFFFFFFFF
@@ -43,6 +43,7 @@ class ChunkOut(NamedTuple):
     overflow: torch.Tensor  # [B] seed hits past a_cap (not in the anchors)
     carry: NormCarry
     ev_offset: torch.Tensor  # [B] event offset after this chunk
+    events: torch.Tensor  # f32 [B, e_cap] this chunk's events (for DTW)
 
 
 class _Stages:
@@ -109,16 +110,31 @@ def rep_len_from_filtered(qpos_seed, flt, span: int):
 def merge_sort_fill(
     a_key, a_tpos, a_qpos, n_new,
     prev_key, prev_tpos, prev_qpos, n_prev,
+    q_rank=None, target_rank=None,
     *,
     span: int, max_dist_t: int, max_dist_q: int, bw: int, max_iter: int,
     chn_pen_gap: float, chn_pen_skip: float,
+    all_vs_all: bool = False,
     stages: _Stages | None = None,
 ):
-    """Carried-anchor merge -> sort by (key, tpos) -> chaining DP fill
-    (rmap.cpp:111-121 + mg_lchain_dp, lchain.c:385).  Keys are u32 values in
-    int64.  Returns (key bits, tpos, qpos, n_anchors, f, p), all int32."""
+    """All-vs-all filter -> carried-anchor merge -> sort by (key, tpos) ->
+    chaining DP fill (rmap.cpp:86-121 + mg_lchain_dp, lchain.c:385).  Keys
+    are u32 values in int64.  With `all_vs_all`, a hit is kept only if its
+    target's name ranks above the query's (q_rank [B] and target_rank
+    [n_seq], int).  Returns (key bits, tpos, qpos, n_anchors, f, p), all
+    int32."""
     dev = a_key.device
     a_cap, p_cap = a_key.shape[1], prev_key.shape[1]
+    if all_vs_all:
+        # skip targets whose name sorts <= the query's (rmap.cpp:86:
+        # strcmp(qname, ref_name) >= 0 -> skip); the kept hits stay in slot
+        # order, so the stable sort below breaks ties as before
+        keep = torch.arange(a_cap, device=dev)[None, :] < n_new[:, None]
+        hit_id = (a_key & I32_MAX).clamp(max=target_rank.shape[0] - 1)
+        keep &= target_rank[hit_id] > q_rank[:, None]
+        a_key, n_new = dense_compact(a_key, keep)
+        a_tpos, _ = dense_compact(a_tpos, keep)
+        a_qpos, _ = dense_compact(a_qpos, keep)
     new_valid = torch.arange(a_cap, device=dev)[None, :] < n_new[:, None]
     prev_valid = torch.arange(p_cap, device=dev)[None, :] < n_prev[:, None]
     m_key = torch.cat([torch.where(new_valid, a_key, U32_MAX),
@@ -159,6 +175,8 @@ def chunk_step(
     prev_tpos: torch.Tensor,  # i32 [B, P]
     prev_qpos: torch.Tensor,  # i32 [B, P]
     n_prev: torch.Tensor,  # i32 [B]
+    q_rank: torch.Tensor | None = None,  # [B] query name ranks (all-vs-all)
+    target_rank: torch.Tensor | None = None,  # [n_seq] target name ranks
     *,
     diff: float, w: int, e: int, q: int, k: int,
     fine_min: float, fine_max: float, fine_range: float,
@@ -168,11 +186,13 @@ def chunk_step(
     min_events: int, mid_occ: int,
     max_dist_t: int, max_dist_q: int, bw: int, max_iter: int,
     chn_pen_gap: float, chn_pen_skip: float,
+    all_vs_all: bool = False,
     prof=None,
 ) -> ChunkOut:
     """One chunk for a batch of reads.  `prof` (a StageProfiler) receives
     the wall time of each stage: events, sketch, lookup+expand, sort,
-    fill."""
+    fill.  With `all_vs_all`, hits go through merge_sort_fill's rank
+    filter."""
     stages = _Stages(prof, sig.device) if prof is not None else None
     span = k + e - 1
     sig = sig.to(torch.float32)  # signal may arrive as f16
@@ -207,17 +227,17 @@ def chunk_step(
 
     s_key, s_tpos, s_qpos, n_anchors, f, p = merge_sort_fill(
         a_key, a_tpos, a_qpos, n_hits,
-        prev_key, prev_tpos, prev_qpos, n_prev,
+        prev_key, prev_tpos, prev_qpos, n_prev, q_rank, target_rank,
         span=span, max_dist_t=max_dist_t, max_dist_q=max_dist_q,
         bw=bw, max_iter=max_iter,
         chn_pen_gap=chn_pen_gap, chn_pen_skip=chn_pen_skip,
-        stages=stages,
+        all_vs_all=all_vs_all, stages=stages,
     )
     return ChunkOut(
         key=s_key, tpos=s_tpos, qpos=s_qpos, f=f, p=p, n_anchors=n_anchors,
         rep_len=rep_len, n_ev=n_ev, processed=processed,
         overflow=overflow.to(torch.int32), carry=carry2,
-        ev_offset=ev_offset2.to(torch.int32),
+        ev_offset=ev_offset2.to(torch.int32), events=events,
     )
 
 
@@ -251,6 +271,8 @@ def chunk_step_tail(
     prev_qpos: torch.Tensor,  # i32 [B, P_in]
     n_prev: torch.Tensor,  # i32 [B]
     active: torch.Tensor,  # i32 [B] 1 = read still mapping (keeps its carry)
+    q_rank: torch.Tensor | None = None,  # [B] query name ranks (all-vs-all)
+    target_rank: torch.Tensor | None = None,  # [n_seq] target name ranks
     *,
     k_cap: int, p_out: int, min_cnt: int, min_sc: int,
     prof=None,
@@ -258,11 +280,12 @@ def chunk_step_tail(
 ) -> ChunkOutTail:
     """chunk_step, then the chain backtrack and compaction on the device
     (reference: rmap.cpp:210-387 with mg_chain_backtrack + compact_a,
-    lchain.c:95-281).  `step` holds chunk_step's keyword parameters; `prof`
-    also receives the backtrack and compact stages."""
+    lchain.c:95-281).  `step` holds chunk_step's keyword parameters
+    (all_vs_all among them); `prof` also receives the backtrack and compact
+    stages."""
     n_prev = torch.where(active != 0, n_prev, 0)
     out = chunk_step(didx, sig, slen, carry, ev_offset, prev_key, prev_tpos,
-                     prev_qpos, n_prev, prof=prof, **step)
+                     prev_qpos, n_prev, q_rank, target_rank, prof=prof, **step)
     return tail_finish(
         out, span=step["k"] + step["e"] - 1, bw=step["bw"], min_cnt=min_cnt,
         min_sc=min_sc, k_cap=k_cap, p_out=p_out, prof=prof,

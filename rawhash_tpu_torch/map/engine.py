@@ -16,12 +16,14 @@ Then, per read on the host: regions, MAPQ and the mapping decision
 tail and switch to the device tail once the observed anchor watermark
 passes `tail_switch_anchors`, by the reference engine's rule;
 RAWHASH_TPU_DEVICE_TAIL=1 forces the device tail, RAWHASH_TPU_NO_DEVICE_TAIL=1
-forbids it.  Reads leave the loop as soon as a decision fires.  Batches run
-one after another.
+forbids it.  The modes that need every anchor or event on the host (--rmq,
+--bw-long, --dtw-evaluate-chains) keep the host tail.  Reads leave the loop
+as soon as a decision fires.  Batches run one after another.
 """
 
 from __future__ import annotations
 
+import bisect
 import dataclasses
 import os
 import sys
@@ -38,7 +40,9 @@ from ..chain.regions import (
     gen_regs, gen_regs_from_summaries, select_sub, set_mapq, set_parent,
     wang_hash32,
 )
+from ..chain.rmq import lchain_rmq_np
 from ..config import MapFlag, MapOptions
+from ..dtw.evaluate import evaluate_chains_batched
 from ..index.build import RawIndex, update_mid_occ
 from ..index.device import DeviceIndex
 from ..signal.events import NormCarry
@@ -95,20 +99,7 @@ def _unpack_xy(ax: np.ndarray, ay: np.ndarray):
 
 def unsupported_options(mopt: MapOptions) -> list:
     """Mapping options this engine does not implement yet."""
-    out = []
-    if mopt.flag & MapFlag.ALL_CHAINS:
-        out.append("all-vs-all mapping (-x ava*)")
-    if mopt.flag & MapFlag.DTW_EVALUATE_CHAINS:
-        out.append("--dtw-evaluate-chains")
-    if mopt.flag & MapFlag.RMQ:
-        out.append("--rmq")
-    if mopt.bw_long > mopt.bw:
-        out.append("--bw-long")
-    if mopt.flag & MapFlag.SEQUENCEUNTIL:
-        out.append("--sequence-until")
-    if mopt.n_shards >= 1:
-        out.append("--n-shards")
-    return out
+    return ["--n-shards"] if mopt.n_shards >= 1 else []
 
 
 def fill_params(iopt, mopt: MapOptions) -> dict:
@@ -153,6 +144,16 @@ class MappingEngine:
         self.didx = DeviceIndex.from_host(index, self.device)
         self.span = self.iopt.k + self.iopt.e - 1
         self.fill_params = fill_params(self.iopt, mopt)
+        # all-vs-all name ranks: the reference skips a target whose name
+        # sorts <= the query's (strcmp, rmap.cpp:86); ranks in sorted-name
+        # order give the same predicate.  None in the other modes.
+        self._target_rank = self._sorted_names = None
+        if mopt.flag & MapFlag.ALL_CHAINS:
+            order = sorted(range(index.n_seq), key=lambda i: index.seq_names[i])
+            ranks = np.zeros(max(index.n_seq, 1), dtype=np.int32)
+            ranks[order] = np.arange(index.n_seq, dtype=np.int32)
+            self._target_rank = torch.from_numpy(ranks).to(self.device)
+            self._sorted_names = [index.seq_names[i] for i in order]
         self.stats = {"hit_overflow": 0, "prev_overflow": 0, "reads": 0,
                       "mapped": 0, "anchor_regrows": 0, "chain_overflow": 0,
                       "tail_chunks": 0}
@@ -168,68 +169,126 @@ class MappingEngine:
         # RAWHASH_TPU_NO_DEVICE_TAIL, else switched on once the anchor
         # watermark passes tail_switch_anchors.  Batches bind the mode at
         # creation.
-        eligible = not os.environ.get("RAWHASH_TPU_NO_DEVICE_TAIL")
+        eligible = (
+            not (mopt.flag & (MapFlag.DTW_EVALUATE_CHAINS | MapFlag.RMQ))
+            and mopt.bw_long <= mopt.bw
+            and not os.environ.get("RAWHASH_TPU_NO_DEVICE_TAIL")
+        )
         self.device_tail = eligible and bool(os.environ.get("RAWHASH_TPU_DEVICE_TAIL"))
         self._tail_auto = eligible and not self.device_tail
         self.tail_switch_anchors = tail_switch_anchors(index, mopt)
 
     # ---------- decisions and the host tail ----------
 
-    def _decide(self, regs):
+    def _q_rank(self, name: str) -> int:
+        """Rank r such that (target rank > r) <=> target name > query name
+        (the reference's all-vs-all skip, rmap.cpp:86)."""
+        return bisect.bisect_right(self._sorted_names, name) - 1
+
+    def _decide(self, regs, is_dtw: bool):
         """Mapping decision for one read after a chunk
         (reference: rmap.cpp:423-500). Returns (map_chain_ids, done)."""
         mo = self.mopt
         n_cregs = len(regs)
-        if n_cregs == 1 and regs[0].mapq >= mo.min_mapq:
+        all_chains = bool(mo.flag & MapFlag.ALL_CHAINS)
+        if n_cregs == 1 and (
+            regs[0].mapq >= mo.min_mapq
+            or (is_dtw and regs[0].alignment_score >= mo.dtw_min_score)
+        ):
             return [0], True
-        n_chains = 1 if n_cregs >= 1 else n_cregs
+        n_chains = n_cregs if (all_chains or n_cregs < 1) else 1
         mean_c = mean_q = 0.0
         if n_cregs > 0:
             mean_c = sum(r.score for r in regs) / n_cregs
             mean_q = sum(r.mapq for r in regs) / n_cregs
         maps = []
-        for ic in range(n_chains):
+        ic = 0
+        while ic < n_chains:
             best_q = float(regs[ic].mapq)
             best_c = float(regs[ic].score)
-            r_bestq = min(best_q / 30.0, 1.0) if best_q > 0 else 0.0
-            r_bestmq = max(1.0 - mean_q / best_q, 0.0) if best_q > 0 else 0.0
-            r_bestmc = max(1.0 - mean_c / best_c, 0.0) if best_c > 0 else 0.0
-            weighted = (mo.w_bestq * r_bestq + mo.w_bestmq * r_bestmq
-                        + mo.w_bestmc * r_bestmc)
-            if weighted >= mo.w_threshold:
+            weighted = 0.0
+            if not all_chains and is_dtw:
+                best_a = regs[ic].alignment_score
+                if n_chains == 1:
+                    # the best alignment score decides (rmap.cpp:445-457)
+                    best_ind = 0
+                    for i2 in range(1, n_cregs):
+                        if regs[i2].alignment_score > best_a:
+                            best_a = regs[i2].alignment_score
+                            best_ind = i2
+                    ic = best_ind
+                    best_q = float(regs[ic].mapq)
+                    best_c = float(regs[ic].score)
+                if best_a >= mo.dtw_min_score:
+                    r_bestma = max(best_a / 50.0, 0.0) if best_a > 0 else 0.0
+                    r_bestmq = max(1.0 - mean_q / best_q, 0.0) if best_q > 0 else 0.0
+                    r_bestmc = max(1.0 - mean_c / best_c, 0.0) if best_c > 0 else 0.0
+                    weighted = (mo.w_bestma * r_bestma + mo.w_bestmq * r_bestmq
+                                + mo.w_bestmc * r_bestmc)
+            elif not all_chains:
+                r_bestq = min(best_q / 30.0, 1.0) if best_q > 0 else 0.0
+                r_bestmq = max(1.0 - mean_q / best_q, 0.0) if best_q > 0 else 0.0
+                r_bestmc = max(1.0 - mean_c / best_c, 0.0) if best_c > 0 else 0.0
+                weighted = (mo.w_bestq * r_bestq + mo.w_bestmq * r_bestmq
+                            + mo.w_bestmc * r_bestmc)
+            if weighted >= mo.w_threshold or (
+                all_chains and regs[ic].score >= mo.min_chaining_score2
+            ):
                 maps.append(ic)
+            ic += 1
         return maps, len(maps) > 0
+
+    def _rmq(self, ax, ay, bw: int):
+        """RMQ chaining of packed anchors at band width `bw`
+        (reference: mg_lchain_rmq, lchain.c:606-756)."""
+        mo = self.mopt
+        fp = self.fill_params
+        return lchain_rmq_np(
+            ax, ay, max(mo.max_target_gap_length, mo.max_query_gap_length),
+            mo.rmq_inner_dist, bw, mo.max_num_skips, mo.rmq_size_cap,
+            mo.min_num_anchors, mo.min_chaining_score,
+            fp["chn_pen_gap"], fp["chn_pen_skip"],
+        )
 
     def _chunk_tail(self, key, tpos, qpos, n_anchors, f, p, ev_total):
         """Host tail of one chunk for one read: backtrack -> regions.
-        Returns (regs, carried-anchor (px, py))."""
+        Returns (regs, chain anchors (bx, by), carried anchors (px, py))."""
         mo = self.mopt
         n = int(n_anchors)
         ax, ay = _pack_xy(key[:n], tpos[:n], qpos[:n], self.span)
-        native = chain_tail_native(
-            f[:n], p[:n], ax, ay,
-            mo.min_num_anchors, mo.min_chaining_score, mo.bw,
-        )
-        if native is not None:
-            u_s, bx, by, px, py = native
+        if mo.flag & MapFlag.RMQ:
+            # RMQ chaining replaces the device fill's f/p (rmap.cpp:332-334)
+            u_s, bx, by, px, py = self._rmq(ax, ay, mo.bw)
         else:
-            u, v = chain_backtrack(
-                f[:n].astype(np.int32), p[:n].astype(np.int64),
-                min_cnt=mo.min_num_anchors, min_sc=mo.min_chaining_score,
-                max_drop=mo.bw,
+            native = chain_tail_native(
+                f[:n], p[:n], ax, ay,
+                mo.min_num_anchors, mo.min_chaining_score, mo.bw,
             )
-            u_s, bx, by, px, py = compact_chains(u, v, ax, ay)
+            if native is not None:
+                u_s, bx, by, px, py = native
+            else:
+                u, v = chain_backtrack(
+                    f[:n].astype(np.int32), p[:n].astype(np.int64),
+                    min_cnt=mo.min_num_anchors, min_sc=mo.min_chaining_score,
+                    max_drop=mo.bw,
+                )
+                u_s, bx, by, px, py = compact_chains(u, v, ax, ay)
+        if mo.bw_long > mo.bw and bx.shape[0] > 0:
+            # long-gap re-chaining of the chain anchors (rmap.cpp:336-340)
+            u_s, bx, by, px, py = self._rmq(bx, by, mo.bw_long)
         # read hash (reference: rmap.cpp:346-348)
         h = wang_hash32((wang_hash32(ev_total) + wang_hash32(11)) & 0xFFFFFFFF)
         args = (mo.mask_level, mo.mask_len, bool(mo.flag & MapFlag.HARD_MLEVEL),
                 mo.alt_drop)
+        all_chains = bool(mo.flag & MapFlag.ALL_CHAINS)
         sel = (mo.pri_ratio, mo.best_n, True, int(mo.max_target_gap_length * 0.8))
-        regs = gen_regions_native(h, u_s, bx, by, *args, True, *sel)
+        regs = gen_regions_native(h, u_s, bx, by, *args, not all_chains, *sel)
         if regs is None:  # no native toolchain: the numpy path
             regs = gen_regs(h, u_s.shape[0], u_s, bx, by)
             set_parent(regs, *args)
-            regs = select_sub(regs, *sel)
-        return regs, (px, py)
+            if not all_chains:
+                regs = select_sub(regs, *sel)
+        return regs, (bx, by), (px, py)
 
     # ---------- capacities ----------
 
@@ -318,6 +377,10 @@ class _BatchState:
         self.prev_tpos = np.zeros((b, self.p_cap), dtype=np.int32)
         self.prev_qpos = np.zeros((b, self.p_cap), dtype=np.int32)
         self.n_prev = np.zeros(b, dtype=np.int32)
+        self.q_rank = None  # all-vs-all only: each read's query name rank
+        if engine._sorted_names is not None:
+            self.q_rank = torch.tensor([engine._q_rank(n) for n in self.names],
+                                       dtype=torch.int32, device=engine.device)
         self.active = np.ones(b, dtype=bool)
         self.last_regs = [[] for _ in range(b)]
         self.c_counts = np.zeros(b, dtype=np.int64)
@@ -325,6 +388,7 @@ class _BatchState:
         self.ev_totals = np.zeros(b, dtype=np.int64)
         self.t_start = np.full(b, time.perf_counter())
         self.t_decided = np.zeros(b, dtype=np.float64)
+        self.all_events = [[] for _ in range(b)]  # DTW: each chunk's events
         self.chunk_idx = 0
         # the tail mode binds at batch creation, so an engine-level switch
         # never changes an in-flight batch
@@ -355,12 +419,13 @@ class _BatchState:
         self.p_cap = new_p
 
 
-def _step(engine: MappingEngine, st: _BatchState, inputs, a_cap: int):
+def _step(engine: MappingEngine, st: _BatchState, inputs, a_cap: int, q_rank):
     """The device chunk step on `inputs` (sig, slen, carry, ev_offset and
-    the carried-anchor planes, all on the engine's device)."""
+    the carried-anchor planes, all on the engine's device) for the reads of
+    query name ranks `q_rank`."""
     mo, io = engine.mopt, engine.iopt
     return chunk_step(
-        engine.didx, *inputs,
+        engine.didx, *inputs, q_rank, engine._target_rank,
         diff=io.diff, w=io.w, e=io.e, q=io.q, k=io.k,
         fine_min=io.fine_min, fine_max=io.fine_max, fine_range=io.fine_range,
         window_length1=mo.window_length1, window_length2=mo.window_length2,
@@ -369,7 +434,7 @@ def _step(engine: MappingEngine, st: _BatchState, inputs, a_cap: int):
         e_cap=st.e_cap, a_cap=a_cap,
         min_events=mo.min_events, mid_occ=int(mo.mid_occ),
         **{k: v for k, v in engine.fill_params.items() if k != "q_span"},
-        prof=engine.profiler,
+        all_vs_all=bool(mo.flag & MapFlag.ALL_CHAINS), prof=engine.profiler,
     )
 
 
@@ -402,7 +467,8 @@ def _quarantine_overflow(engine: MappingEngine, st: _BatchState, inputs,
     while True:
         engine.stats["anchor_regrows"] += 1
         sub_a = min(_pow2_up(max(sub_a + need, 2 * sub_a)), cap_ceil)
-        out = _step(engine, st, sub, sub_a)
+        out = _step(engine, st, sub, sub_a,
+                    None if st.q_rank is None else st.q_rank[idx])
         over = out.overflow.cpu().numpy()
         need = int(over.max())
         if need <= 0 or sub_a >= cap_ceil:
@@ -453,7 +519,7 @@ def _run_chunk(engine: MappingEngine, st: _BatchState) -> None:
         torch.from_numpy(st.n_prev).to(dev),
     )
     engine.profiler.add("transfer", time.perf_counter() - t0)
-    out = _step(engine, st, inputs, st.a_cap)
+    out = _step(engine, st, inputs, st.a_cap, st.q_rank)
 
     t0 = time.perf_counter()
     h_nanc, h_rep, h_proc, h_over, h_evoff = (
@@ -486,10 +552,15 @@ def _run_chunk(engine: MappingEngine, st: _BatchState) -> None:
     clean[list(overrides)] = False
     nmax = int(h_nanc[clean].max()) if clean.any() else 0
     h_key, h_tpos, h_qpos, h_f, h_p = _to_host(out, width=nmax)
+    is_dtw = bool(mo.flag & MapFlag.DTW_EVALUATE_CHAINS)
+    if is_dtw:
+        # events leave the device as f16, as in the reference engine
+        h_nev = out.n_ev.cpu().numpy()
+        h_events = out.events.half().cpu().numpy().astype(np.float32)
     engine.profiler.add("transfer", time.perf_counter() - t0)
 
     t_host = now = time.perf_counter()
-    decide = []
+    decide = []  # (read, its chain anchors (bx, by))
     wms = []  # per-read anchor watermarks for the learned a_cap
     for i in range(st.b):
         if not st.active[i]:
@@ -502,6 +573,8 @@ def _run_chunk(engine: MappingEngine, st: _BatchState) -> None:
         if not h_proc[i]:
             st.last_regs[i] = []
             continue
+        if is_dtw:
+            st.all_events[i].append(h_events[i, : h_nev[i]].copy())
         st.ev_totals[i] = int(h_evoff[i])
         ov = overrides.get(i)
         if ov is not None:
@@ -511,7 +584,7 @@ def _run_chunk(engine: MappingEngine, st: _BatchState) -> None:
             k_i, t_i, q_i, f_i, p_i = h_key[i], h_tpos[i], h_qpos[i], h_f[i], h_p[i]
             n_i = int(h_nanc[i])
             wms.append(n_i + int(h_over[i]))
-        regs, (px, py) = engine._chunk_tail(
+        regs, chain_xy, (px, py) = engine._chunk_tail(
             k_i, t_i, q_i, n_i, f_i, p_i, int(h_evoff[i])
         )
         st.last_regs[i] = regs
@@ -525,12 +598,18 @@ def _run_chunk(engine: MappingEngine, st: _BatchState) -> None:
         st.prev_tpos[i, :npv] = t2
         st.prev_qpos[i, :npv] = q2
         st.n_prev[i] = npv
-        decide.append(i)
+        decide.append((i, chain_xy))
 
-    for i in decide:
+    if is_dtw:
+        # every read's chains in one batched DTW on the engine's device
+        jobs = [(st.last_regs[i], bx, by, np.concatenate(st.all_events[i]))
+                for i, (bx, by) in decide if st.last_regs[i]]
+        if jobs:
+            evaluate_chains_batched(jobs, engine.index, mo, engine.device)
+    for i, _ in decide:
         regs = st.last_regs[i]
-        set_mapq(regs, mo.min_chaining_score, int(h_rep[i]), False)
-        ids, done = engine._decide(regs)
+        set_mapq(regs, mo.min_chaining_score, int(h_rep[i]), is_dtw)
+        ids, done = engine._decide(regs, is_dtw)
         if done:
             st.map_ids[i] = ids
             st.t_decided[i] = now
@@ -572,7 +651,8 @@ def _step_tail(engine: MappingEngine, st: _BatchState, sig, slen):
         key, tpos, qpos, n_prev = st.prev_dev
         active = torch.from_numpy(st.active).to(engine.device)
         prev = (key, tpos, qpos, torch.where(active, n_prev, 0))
-    return _step(engine, st, (sig, slen, st.carry, st.ev_offset, *prev), st.a_cap)
+    return _step(engine, st, (sig, slen, st.carry, st.ev_offset, *prev),
+                 st.a_cap, st.q_rank)
 
 
 def _finish_tail(engine: MappingEngine, st: _BatchState, out):
@@ -634,6 +714,7 @@ def _run_chunk_tail(engine: MappingEngine, st: _BatchState, sig, slen_dev,
     t_host = now = time.perf_counter()
     c = st.chunk_idx
     span = engine.span
+    all_chains = bool(mo.flag & MapFlag.ALL_CHAINS)
     sel = (mo.pri_ratio, mo.best_n, True, int(mo.max_target_gap_length * 0.8))
     par = (mo.mask_level, mo.mask_len, bool(mo.flag & MapFlag.HARD_MLEVEL),
            mo.alt_drop)
@@ -652,14 +733,15 @@ def _run_chunk_tail(engine: MappingEngine, st: _BatchState, sig, slen_dev,
         # read hash (reference: rmap.cpp:346-348)
         h = wang_hash32((wang_hash32(ev_total) + wang_hash32(11)) & 0xFFFFFFFF)
         rows = summ[i, : int(h_scal[i, 0])]
-        regs = gen_regions_summ_native(h, rows, span, *par, True, *sel)
+        regs = gen_regions_summ_native(h, rows, span, *par, not all_chains, *sel)
         if regs is None:  # no native toolchain: the numpy path
             regs = gen_regs_from_summaries(h, rows, span)
             set_parent(regs, *par)
-            regs = select_sub(regs, *sel)
+            if not all_chains:
+                regs = select_sub(regs, *sel)
         st.last_regs[i] = regs
         set_mapq(regs, mo.min_chaining_score, int(h_scal[i, 1]), False)
-        ids, done = engine._decide(regs)
+        ids, done = engine._decide(regs, False)
         if done:
             st.map_ids[i] = ids
             st.t_decided[i] = now

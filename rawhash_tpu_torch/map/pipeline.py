@@ -1,13 +1,15 @@
 """Index build or load, then mapping to PAF (port of
 rawhash_tpu/map/pipeline.py::run_pipeline, serial: batches of reads are
-mapped one after another on the calling thread)."""
+mapped one after another on the calling thread).  Sequence Until stops
+reading once its abundance estimates converge (rmap.cpp:708-734);
+--out-quantize prints quantized event streams instead of mapping."""
 
 from __future__ import annotations
 
 import sys
 import time
 
-from ..config import IndexFlag
+from ..config import IndexFlag, MapFlag
 from ..index.build import build_index_from_sequences, build_index_from_signals
 from ..index.ref_ind import dump_ref_index, is_ref_index, load_ref_index
 from ..index.serialize import is_index_file, load_index, save_index
@@ -15,8 +17,12 @@ from ..io.fasta import read_fasta
 from ..io.paf import write_paf
 from ..io.sigfile import find_signal_files, read_signals
 from ..pore import load_pore
+from ..signal.events_host import detect_events_np, normalize_signal_np
+from ..sketch.host import diff_compact_indices
+from ..sketch.quantize import dynamic_quantize_np
 from ..utils.timers import resource_summary
 from .engine import MappingEngine, unsupported_options
+from .sequence_until import SequenceUntil
 
 
 def _read_all(path):
@@ -101,16 +107,27 @@ def load_or_build_index(args, iopt, log):
     return index
 
 
+def _output(args):
+    """The -o file opened for writing, or stdout."""
+    return open(args.output, "w") if args.output and args.output != "-" else sys.stdout
+
+
 def run_pipeline(args, iopt, mopt, t0: float, device: str) -> int:
     log = lambda msg: print(f"[M::rawhash-tpu-torch::{time.time()-t0:.3f}] {msg}",
                             file=sys.stderr)
     unsupported = unsupported_options(mopt)
-    if iopt.flag & IndexFlag.OUT_QUANTIZE:
-        unsupported.append("--out-quantize")
     if unsupported:
         print("[ERROR] not supported by the PyTorch engine yet: "
               + ", ".join(unsupported), file=sys.stderr)
         return 1
+    if iopt.flag & IndexFlag.OUT_QUANTIZE:
+        out = _output(args)
+        try:
+            _run_out_quantize(args, iopt, out)
+        finally:
+            if out is not sys.stdout:
+                out.close()
+        return 0
     try:
         index = load_or_build_index(args, iopt, log)
     except ValueError as e:
@@ -123,20 +140,35 @@ def run_pipeline(args, iopt, mopt, t0: float, device: str) -> int:
 
     engine = MappingEngine(index, mopt, device=device)
     log(f"mid_occ = {mopt.mid_occ}; device = {engine.device}")
-    out = sys.stdout
-    if args.output and args.output != "-":
-        out = open(args.output, "w")
+    su = None
+    if mopt.flag & MapFlag.SEQUENCEUNTIL:
+        su = SequenceUntil(index.n_seq, mopt.t_threshold, mopt.tn_samples,
+                           mopt.ttest_freq, mopt.tmin_reads)
+    out = _output(args)
     n_reads = n_mapped = total_samples = 0
     try:
         for batch in _batched_reads(args.query, mopt.batch_reads,
                                     mopt.mini_batch_size,
                                     getattr(args, "io_thread", 1) or 1):
             results = engine.map_batch(batch)
-            write_paf(results, index, out)
+            stop = False
+            for (_, sig), res in zip(batch, results):
+                write_paf([res], index, out)
+                n_reads += 1
+                total_samples += sig.shape[0]
+                mapped = [m for m in res.records if m.mapped]
+                if mapped:
+                    n_mapped += 1
+                    # Sequence Until watches each read's first mapping
+                    if su is not None and su.observe(mapped[0].ref_id,
+                                                     mapped[0].frag_len):
+                        log("Sequence Until: estimates converged, stopping "
+                            f"after {su.nreads} mapped reads")
+                        stop = True
+                        break
             out.flush()
-            n_reads += len(batch)
-            total_samples += sum(sig.shape[0] for _, sig in batch)
-            n_mapped += sum(any(m.mapped for m in r.records) for r in results)
+            if stop:
+                break
     finally:
         if out is not sys.stdout:
             out.close()
@@ -151,3 +183,26 @@ def run_pipeline(args, iopt, mopt, t0: float, device: str) -> int:
             f"{engine.stats['prev_overflow']} carried anchors dropped "
             "(raise --max-anchors to eliminate)")
     return 0
+
+
+def _run_out_quantize(args, iopt, out) -> None:
+    """Print quantized event streams (reference: --out-quantize,
+    rsketch.c:179,192 + worker_sig_pipeline)."""
+    for path in [args.target] + list(args.query):
+        for f in find_signal_files(path):
+            for name, sig in read_signals(f):
+                if iopt.flag & IndexFlag.NO_EVENT_DETECTION:
+                    events, _ = normalize_signal_np(sig, (0.0, 0.0, 0))
+                else:
+                    events, _ = detect_events_np(
+                        sig, (0.0, 0.0, 0),
+                        iopt.window_length1, iopt.window_length2,
+                        iopt.threshold1, iopt.threshold2, iopt.peak_height,
+                    )
+                kept = diff_compact_indices(events, iopt.diff)
+                codes = dynamic_quantize_np(
+                    events[kept], iopt.fine_min, iopt.fine_max,
+                    iopt.fine_range, 1 << iopt.q,
+                ) & ((1 << iopt.q) - 1)
+                out.write(name + "\n")
+                out.write(",".join(str(int(c)) for c in codes) + "\n")

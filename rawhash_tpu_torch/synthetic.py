@@ -1,6 +1,7 @@
 """Synthetic mapping workloads from a seed: genome, pore model, reads with
-their true positions, and the preset's options; and chain-backtrack inputs.
-Used by the tests and by chip_smoke.py."""
+their true positions, and the preset's options; all-vs-all overlap
+workloads with their true pairs; and chain-backtrack inputs.  Used by the
+tests and by chip_smoke.py."""
 
 from __future__ import annotations
 
@@ -9,10 +10,10 @@ from pathlib import Path
 
 import numpy as np
 
-from .config import IndexOptions, MapOptions, set_preset
+from .config import IndexFlag, IndexOptions, MapOptions, set_preset
 from .index.build import build_index_from_sequences
 from .io.sigfile import write_sig_npz
-from .io.signal_gen import simulate_reads
+from .io.signal_gen import simulate_read, simulate_reads
 from .pore import synthetic_pore
 
 
@@ -51,11 +52,12 @@ def write_fixture(d: Path, genome_len: int = 8000, n_reads: int = 6,
 
 def deployment(genome_len: int, preset: str, n_reads: int, read_len: int,
                max_anchors: int, seed: int, batch_reads: int = 256,
-               seconds: dict | None = None):
+               seconds: dict | None = None, store_sig: bool = False):
     """A genome of genome_len random bases from `seed`, its index under
-    `preset`, and n_reads simulated reads: (index, mopt, reads) with reads
-    as (name, signal, true start, strand).  `seconds`, if given, receives
-    the wall time of each part (genome, index, reads)."""
+    `preset` (with the expected signal stored, for DTW, if `store_sig`),
+    and n_reads simulated reads: (index, mopt, reads) with reads as (name,
+    signal, true start, strand).  `seconds`, if given, receives the wall
+    time of each part (genome, index, reads)."""
     t = [time.perf_counter()]
 
     def lap(name):
@@ -70,11 +72,59 @@ def deployment(genome_len: int, preset: str, n_reads: int, read_len: int,
     iopt, mopt = options(preset)
     mopt.batch_reads = batch_reads
     mopt.max_anchors_per_read = max_anchors
+    if store_sig:
+        iopt.flag |= IndexFlag.STORE_SIG
     index = build_index_from_sequences([("chr1", genome)], pore, iopt)
     lap("index")
     reads = simulate_reads(genome, pore, n_reads=n_reads, read_len=read_len, rng=rng)
     lap("reads")
     return index, mopt, reads
+
+
+def ava_fixture_reads():
+    """tests/test_ava.py's all-vs-all fixture: 5 reads of 2000 bases from a
+    6 kb genome (seed 11), read i starting at 800 i on the forward strand,
+    as (name, signal)."""
+    rng = np.random.default_rng(11)
+    genome = random_genome(6000, rng)
+    pore = synthetic_pore(k=6)
+    return [(f"read_{i:02d}", simulate_read(genome, pore, i * 800, 2000, 0, rng))
+            for i in range(5)]
+
+
+def overlap_workload(n_reads: int, genome_len: int, read_len: int, seed: int,
+                     min_ov: int = 450):
+    """All-vs-all reads as bench.py's _ava_overlap_quality makes them: each
+    read from a uniform start on a random strand of a random genome.
+    Returns (reads as (name, signal), pairs that overlap at all, pairs that
+    overlap by >= min_ov bases); a pair is (name, name) in name order."""
+    rng = np.random.default_rng(seed)
+    genome = random_genome(genome_len, rng)
+    pore = synthetic_pore(k=6)
+    reads, spans = [], []
+    for i in range(n_reads):
+        start = int(rng.integers(0, genome_len - read_len))
+        strand = int(rng.integers(0, 2))
+        reads.append((f"r{i:04d}", simulate_read(genome, pore, start, read_len,
+                                                 strand, rng)))
+        spans.append((start, start + read_len))
+    truth_any, truth_sub = set(), set()
+    for i in range(n_reads):
+        for j in range(i + 1, n_reads):
+            ov = min(spans[i][1], spans[j][1]) - max(spans[i][0], spans[j][0])
+            if ov > 0:
+                truth_any.add((reads[i][0], reads[j][0]))
+            if ov >= min_ov:
+                truth_sub.add((reads[i][0], reads[j][0]))
+    return reads, truth_any, truth_sub
+
+
+def overlap_quality(pred: set, truth_any: set, truth_sub: set):
+    """(precision, recall) of predicted pairs as bench.py counts them: a
+    pair is right if the reads overlap at all; recall is over the pairs
+    that overlap by >= min_ov bases."""
+    return (len(pred & truth_any) / max(len(pred), 1),
+            len(pred & truth_sub) / max(len(truth_sub), 1))
 
 
 def random_chains(seed: int, b: int, n: int, n_heads: int, min_sc: int = 20):

@@ -25,7 +25,8 @@ from rawhash_tpu_torch.profiling.fill_loop_overhead import (  # noqa: E402
     INT32_MIN, MAX_W, fill_loop_probe, fill_loop_probe_plain,
 )
 from rawhash_tpu_torch.synthetic import (  # noqa: E402
-    border_anchors, clustered_anchors, options, random_chains, sparse_anchors,
+    ava_fixture_reads, border_anchors, clustered_anchors, options, random_chains,
+    sparse_anchors,
 )
 
 
@@ -205,3 +206,50 @@ def test_fill_loop_probe_rejects_wrong_input(cuda_device):
                 torch.zeros((MAX_W + 1, 2), dtype=torch.int32, device=cuda_device)):
         with pytest.raises(ValueError):
             fill_loop_probe(bad, 10, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tail", ["host", "device"])
+def test_ava_fixture_on_the_card_matches_cpu(cuda_device, monkeypatch, tail):
+    """All-vs-all on the card: the same records as on the CPU, through the
+    fill kernel (and the backtrack kernel on the device tail)."""
+    from rawhash_tpu_torch.index.build import build_index_from_signals
+    from rawhash_tpu_torch.map.engine import MappingEngine
+
+    if tail == "device":
+        monkeypatch.setenv("RAWHASH_TPU_DEVICE_TAIL", "1")
+    else:
+        monkeypatch.delenv("RAWHASH_TPU_DEVICE_TAIL", raising=False)
+    reads = ava_fixture_reads()
+    io, mo = options("ava-viral")
+    mo.max_anchors_per_read = 512
+    index = build_index_from_signals(reads, None, io)
+    recs = {}
+    fills, backtracks = chain_fill.launches, chain_backtrack.launches
+    for dev in (cuda_device, "cpu"):
+        res = MappingEngine(index, mo, device=dev).map_batch(reads)
+        recs[str(dev)] = [(r.name, [(m.ref_id, m.read_start, m.read_end, m.frag_start,
+                                     m.frag_len, m.mapq, m.rev, m.mapped)
+                                    for m in r.records]) for r in res]
+    assert recs["cuda"] == recs["cpu"]
+    assert sum(m[-1] for _, rs in recs["cpu"] for m in rs) >= 3
+    assert chain_fill.launches > fills
+    assert (chain_backtrack.launches > backtracks) == (tail == "device")
+
+
+@pytest.mark.cuda
+def test_dtw_banded_batch_on_the_card_matches_cpu(cuda_device):
+    """The plain PyTorch banded DTW on the card against its CPU run: pairs
+    of 12-60 events plus one of 512, per-pair radii 1-16."""
+    from rawhash_tpu_torch.dtw.device import dtw_banded_batch_host
+
+    rng = np.random.default_rng(5)
+    pairs = [(rng.normal(0, 1, int(rng.integers(12, 61))).astype(np.float32),
+              rng.normal(0, 1, int(rng.integers(12, 61))).astype(np.float32))
+             for _ in range(64)]
+    pairs.append((rng.normal(0, 1, 512).astype(np.float32),
+                  rng.normal(0, 1, 500).astype(np.float32)))
+    radii = rng.integers(1, 17, len(pairs))
+    got = dtw_banded_batch_host(pairs, radii, device=cuda_device)
+    want = dtw_banded_batch_host(pairs, radii, device="cpu")
+    np.testing.assert_allclose(got, want, rtol=1e-4)

@@ -4,6 +4,7 @@ files shared by both packages, and proof that the port imports neither jax
 nor the JAX package."""
 
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -83,42 +84,69 @@ def test_capacity_growth_drops_nothing(fixture):
 
 
 def test_unsupported_modes_are_refused(fixture):
+    """Only sharding (--n-shards) is still refused."""
     d, _ = fixture
-    rc = torch_cli.main(["-x", "sensitive", "--rmq", "--device", "cpu",
+    rc = torch_cli.main(["-x", "sensitive", "--n-shards", "1", "--device", "cpu",
                          str(d / "sensitive.rhi.npz"), str(d / "reads.sig.npz")])
     assert rc == 1
+
+
+def test_out_quantize_matches_reference(fixture):
+    """--out-quantize prints each read's quantized event stream: the same
+    text as the reference CLI's."""
+    d, _ = fixture
+    args = ["-x", "sensitive", "--out-quantize", str(d / "reads.sig.npz")]
+    assert jax_cli.main(args + ["-o", str(d / "jax.oq")]) == 0
+    assert torch_cli.main(args + ["--device", "cpu", "-o", str(d / "torch.oq")]) == 0
+    text = (d / "torch.oq").read_text()
+    assert text == (d / "jax.oq").read_text()
+    assert len(text.splitlines()) == 12
 
 
 def test_cli_runs_without_jax(fixture):
     """`python -m rawhash_tpu_torch --device cpu` maps the fixture with jax
     and the JAX package made unimportable, and neither is loaded
-    afterwards."""
+    afterwards: the default mapping, all-vs-all (index built from the reads
+    with --sig-target) and DTW chain evaluation (a --store-sig index)."""
     d, _ = fixture
     code = (
-        "import sys, runpy\n"
+        "import json, sys, runpy\n"
         "sys.modules['jax'] = None  # any import of jax now fails\n"
         "sys.modules['rawhash_tpu'] = None  # and of the JAX package\n"
-        "sys.argv = ['rawhash_tpu_torch'] + sys.argv[1:]\n"
-        "try:\n"
-        "    runpy.run_module('rawhash_tpu_torch', run_name='__main__')\n"
-        "except SystemExit as e:\n"
-        "    assert e.code == 0, e.code\n"
+        "for argv in json.loads(sys.argv[1]):\n"
+        "    sys.argv = ['rawhash_tpu_torch'] + argv\n"
+        "    try:\n"
+        "        runpy.run_module('rawhash_tpu_torch', run_name='__main__')\n"
+        "    except SystemExit as e:\n"
+        "        assert e.code == 0, (argv, e.code)\n"
         "loaded = [m for m, v in sys.modules.items() if v is not None and (\n"
         "          m in ('jax', 'rawhash_tpu') or m.startswith(('jax.', 'rawhash_tpu.')))]\n"
         "assert not loaded, loaded\n"
         "print('NO_JAX_OK', file=sys.stderr)\n"
     )
+    reads, cpu = str(d / "reads.sig.npz"), ["--device", "cpu"]
+    runs = [
+        ["-x", "sensitive", "--max-anchors", "512", *cpu,
+         str(d / "sensitive.rhi.npz"), reads, "-o", str(d / "nojax.paf")],
+        ["-x", "ava", "--sig-target", "-d", str(d / "nojax_ava.rhi.npz"), reads, *cpu],
+        ["-x", "ava", *cpu, str(d / "nojax_ava.rhi.npz"), reads,
+         "-o", str(d / "nojax_ava.paf")],
+        ["-x", "sensitive", "-p", str(d / "pore.model"), "--store-sig", "-d",
+         str(d / "nojax_sig.rhi.npz"), str(d / "ref.fa"), *cpu],
+        ["-x", "sensitive", "--dtw-evaluate-chains", "--max-anchors", "512", *cpu,
+         str(d / "nojax_sig.rhi.npz"), reads, "-o", str(d / "nojax_dtw.paf")],
+    ]
     env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
     proc = subprocess.run(
-        [sys.executable, "-c", code, "-x", "sensitive", "--max-anchors", "512",
-         "--device", "cpu", str(d / "sensitive.rhi.npz"), str(d / "reads.sig.npz")],
+        [sys.executable, "-c", code, json.dumps(runs)],
         capture_output=True, text=True, env=env, cwd=str(REPO), timeout=300,
     )
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert "NO_JAX_OK" in proc.stderr
-    lines = [l.split("\t") for l in proc.stdout.splitlines()]
-    assert len(lines) == 6 and sum(l[4] in "+-" for l in lines) >= 5
-    assert np.all([len(l) >= 13 for l in lines])
+    for paf, n_mapped in (("nojax.paf", 5), ("nojax_ava.paf", 0), ("nojax_dtw.paf", 5)):
+        lines = [l.split("\t") for l in (d / paf).read_text().splitlines()]
+        assert len(lines) == 6 and sum(l[4] in "+-" for l in lines) >= n_mapped, paf
+        assert np.all([len(l) >= 13 for l in lines])
 
 
 def _imports(path: Path):
