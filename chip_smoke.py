@@ -87,10 +87,27 @@ Phases, each printed as one JSON line and each fatal on failure:
                copies: max relative difference <= 1e-4
  15. rmq, bw_long D1 with --rmq, then with --bw-long at 5x the preset's --bw,
                1 x 256 reads each
-Phases 6-9 and 12-15 (not the *_kernels checks) are the main-path run:
+ 16. dist      the sharded engine (--n-shards 1) in a one-rank NCCL process
+               group on cuda:0 (the table unsplit: NCCL takes no two ranks
+               on one card), on the first batch of d1 (host tail) and of d2
+               (device tail: K1 and the backtrack on the rank's rows): PAF
+               columns 1-12 equal to the single-device engine's on the same
+               reads (mapped just before, outside the counted run); bp/s of
+               both, shard_hits, the gather and lookup+expand seconds
+ 17. multihost `python -m rawhash_tpu_torch.parallel.multihost --selftest
+               --device cuda` as its own process, a world of one over NCCL:
+               must print MULTIHOST_OK
+ 18. k1_wide   K1 past the shared-memory cap: W = 20000 (the rings in a
+               global-memory scratch) on 8 rows of 16384 anchors all in band,
+               chains stepping 14465 anchors back (sensitive): bit-equal to
+               the plain fill, chain ends better than at W = 14464; timed (median of 5) beside the
+               shared-memory path at W = 14464, the plain fill once, with its
+               bound; then the CLI maps the fixture with --max-iterations
+               20000 on cuda
+Phases 6-9, 12-15 and 16 (not the *_kernels checks) are the main-path run:
 each resets the kernels' launch counters just before it and reads them
-just after; every kernel of its path must have launched in it (ava's and
-ava_tails's: the fill and the backtrack).  Phases 7-9, 14 and 15 need >= 95% of reads mapped at accuracy
+just after; every kernel of its path must have launched in it (ava's,
+ava_tails's and dist's: the fill and the backtrack).  Phases 7-9, 14 and 15 need >= 95% of reads mapped at accuracy
 >= 0.95 (strand right, mapped target interval inside the read's true
 interval +/- 200).
 The line before the card's line lists every kernel with its launches, error
@@ -103,6 +120,7 @@ Needs a CUDA device; exits non-zero without one.
 from __future__ import annotations
 
 import contextlib
+import copy
 import io
 import json
 import os
@@ -760,11 +778,13 @@ def put_back(originals) -> None:
 
 def phase_deployment(torch, dev, name, genome_len, preset, n_batches,
                      read_len, max_anchors, seed, caught, store_sig=False,
-                     configure=None) -> dict:
+                     configure=None, keep=None) -> dict:
     """Build the index and map n_batches x 256 simulated reads on the card
     through the engine's streaming entry point.  The run's widest fill and
     device-tail calls are kept in `caught` (catch_widest).  `store_sig` keeps the expected
-    signal in the index (for DTW); `configure(mopt)` sets the run's mode."""
+    signal in the index (for DTW); `configure(mopt)` sets the run's mode;
+    `keep` receives the index, the options and the first batch (with its
+    truth) for a later phase."""
     from rawhash_tpu_torch.chain.backtrack import chain_backtrack
     from rawhash_tpu_torch.map import engine as eng_mod
     from rawhash_tpu_torch.synthetic import deployment
@@ -779,6 +799,9 @@ def phase_deployment(torch, dev, name, genome_len, preset, n_batches,
     t_setup = time.perf_counter() - t0
     batches = [[(n, s) for n, s, _, _ in reads[i:i + 256]]
                for i in range(0, len(reads), 256)]
+    if keep is not None:
+        keep.update(index=index, mopt=copy.deepcopy(mopt), reads=reads[:256],
+                    read_len=read_len)
     engine = eng_mod.MappingEngine(index, mopt, device=dev)
     originals = catch_widest(caught)
     torch.cuda.synchronize()
@@ -791,17 +814,7 @@ def phase_deployment(torch, dev, name, genome_len, preset, n_batches,
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
 
-    n_mapped = n_correct = 0
-    bases = 0.0
-    for (_, _, start, strand), res in zip(reads, results):
-        rec = res.records[0]
-        ci = int(next(t[5:] for t in rec.tags.split("\t") if t.startswith("ci:i:")))
-        bases += ci * mopt.chunk_size / mopt.sample_per_base
-        if rec.mapped:
-            n_mapped += 1
-            lo, hi = rec.frag_start, rec.frag_start + rec.frag_len
-            n_correct += (rec.rev == strand and lo >= start - 200
-                          and hi <= start + read_len + 200)
+    n_mapped, n_correct, bases = score_mapping(reads, results, mopt, read_len)
     row = dict(
         reads=len(reads), mapped=n_mapped,
         mapped_frac=n_mapped / len(reads),
@@ -826,6 +839,25 @@ def phase_deployment(torch, dev, name, genome_len, preset, n_batches,
     check(row["mapped_frac"] >= 0.95, f"{name}: mapped {n_mapped}/{len(reads)}")
     check(row["accuracy"] >= 0.95, f"{name}: accuracy {row['accuracy']:.3f}")
     return row
+
+
+def score_mapping(reads, results, mopt, read_len) -> tuple:
+    """(mapped reads, of them right, bases of signal consumed) of simulated
+    reads (name, signal, true start, strand): right is the true strand and
+    a target interval inside the true one +/- 200; bases count each read's
+    chunks (ci) of chunk_size samples."""
+    n_mapped = n_correct = 0
+    bases = 0.0
+    for (_, _, start, strand), res in zip(reads, results):
+        rec = res.records[0]
+        ci = int(next(t[5:] for t in rec.tags.split("\t") if t.startswith("ci:i:")))
+        bases += ci * mopt.chunk_size / mopt.sample_per_base
+        if rec.mapped:
+            n_mapped += 1
+            lo, hi = rec.frag_start, rec.frag_start + rec.frag_len
+            n_correct += (rec.rev == strand and lo >= start - 200
+                          and hi <= start + read_len + 200)
+    return n_mapped, n_correct, bases
 
 
 # the ava cell: 512 reads of 3000 bases cover a 250 kb genome about 6x,
@@ -1016,6 +1048,186 @@ def phase_dtw(torch, dev) -> dict:
     return row
 
 
+def records_of(results) -> list:
+    """Each read's records as PAF columns 1-12 and the tags but mt:f."""
+    return [(r.name, [(m.read_length, m.ref_id, m.read_start, m.read_end,
+                       m.frag_start, m.frag_len, m.mapq, m.rev, m.mapped,
+                       [t for t in m.tags.split("\t") if not t.startswith("mt:f:")])
+                      for m in r.records]) for r in results]
+
+
+def map_timed(torch, engine, kept) -> tuple:
+    """(results, seconds) of one engine.map_batch of a kept batch."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = engine.map_batch([(n, s) for n, s, _, _ in kept["reads"]])
+    torch.cuda.synchronize()
+    return results, time.perf_counter() - t0
+
+
+def dist_references(torch, dev, kept) -> dict:
+    """The single-device engine's records and bp/s on each kept cell's
+    first batch, for phase_dist."""
+    from rawhash_tpu_torch.map.engine import MappingEngine
+
+    refs = {}
+    for cell, k in kept.items():
+        engine = MappingEngine(k["index"], copy.deepcopy(k["mopt"]), device=dev)
+        results, dt = map_timed(torch, engine, k)
+        refs[cell] = dict(records=records_of(results), seconds=dt,
+                          bp_per_s=score_mapping(k["reads"], results, k["mopt"],
+                                                 k["read_len"])[2] / dt,
+                          device_tail=engine.device_tail)
+    return refs
+
+
+def phase_dist(torch, dev, kept, refs) -> dict:
+    """The sharded engine (--n-shards 1) in a process group of one rank
+    over NCCL on cuda:0, the table unsplit (one card: NCCL takes no two
+    ranks on one device), on each kept cell's first batch: D1's on the host
+    tail, D2's on the device tail (K1 and the backtrack on the rank's
+    rows).  PAF columns 1-12 must equal the single-device engine's (refs);
+    bp/s of both, shard_hits, the gather stage and the launches of each."""
+    import torch.distributed as tdist
+
+    from rawhash_tpu_torch.chain.backtrack import chain_backtrack
+    from rawhash_tpu_torch.chain.fill import chain_fill
+    from rawhash_tpu_torch.map.engine import MappingEngine
+    from rawhash_tpu_torch.parallel.dist import init_process_group
+
+    rank_dev = init_process_group("cuda")
+    out = {}
+    try:
+        check(tdist.get_backend() == "nccl" and rank_dev.index == 0,
+              f"dist: backend {tdist.get_backend()} on {rank_dev}")
+        for cell, k in kept.items():
+            mopt = copy.deepcopy(k["mopt"])
+            mopt.n_shards = 1
+            engine = MappingEngine(k["index"], mopt, device=rank_dev)
+            n0 = (chain_fill.launches, chain_backtrack.launches)
+            results, dt = map_timed(torch, engine, k)
+            n_mapped, n_correct, bases = score_mapping(k["reads"], results, mopt,
+                                                       k["read_len"])
+            same = records_of(results) == refs[cell]["records"]
+            stages = engine.profiler.totals
+            row = dict(
+                reads=len(results), mapped=n_mapped,
+                accuracy=n_correct / max(n_mapped, 1),
+                paf_equal_single_device=same, seconds=dt, bp_per_s=bases / dt,
+                single_device_bp_per_s=refs[cell]["bp_per_s"],
+                single_device_seconds=refs[cell]["seconds"],
+                world=engine.dist.world, n_shards=engine.dist.n_shards,
+                backend=tdist.get_backend(),
+                shard_hits=engine.stats["shard_hits"].tolist(),
+                device_tail=engine.device_tail,
+                device_tail_chunks=engine.stats["tail_chunks"],
+                table_bytes_on_card=engine.dist.nbytes(),
+                gather_s=stages.get("gather", 0.0),
+                lookup_expand_s=stages.get("lookup+expand", 0.0),
+                stage_seconds=dict(stages), stage_counts=dict(engine.profiler.counts),
+                launches={"chain_fill": chain_fill.launches - n0[0],
+                          "chain_backtrack": chain_backtrack.launches - n0[1]})
+            emit({"phase": "dist", "cell": cell, **row})
+            check(same, f"dist {cell}: the sharded engine's PAF columns 1-12 "
+                  "differ from the single-device engine's")
+            check(engine.device_tail == refs[cell]["device_tail"],
+                  f"dist {cell}: another tail than the single-device engine's")
+            out[cell] = row
+    finally:
+        tdist.destroy_process_group()
+    check(not out["d1"]["device_tail"] and out["d2"]["device_tail"]
+          and out["d2"]["launches"]["chain_backtrack"] > 0,
+          "dist: D1 must stay on the host tail and D2 take the device tail")
+    return out
+
+
+def phase_multihost(torch) -> dict:
+    """The multi-host selftest as its own process, a world of one over
+    NCCL: `python -m rawhash_tpu_torch.parallel.multihost ... --selftest
+    --device cuda`, the sharded chunk step gathered against chunk_step."""
+    import socket
+    import subprocess
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    cmd = [sys.executable, "-m", "rawhash_tpu_torch.parallel.multihost",
+           "--coordinator", f"localhost:{port}", "--num-processes", "1",
+           "--process-id", "0", "--n-shards", "1", "--selftest", "--device", "cuda"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                          env=dict(os.environ, PYTHONPATH=str(ROOT)), cwd=str(ROOT))
+    row = dict(rc=proc.returncode, seconds=time.perf_counter() - t0,
+               stdout=proc.stdout.strip()[-500:], stderr=proc.stderr.strip()[-1500:])
+    emit({"phase": "multihost", **row})
+    check(proc.returncode == 0 and "MULTIHOST_OK process=0" in proc.stdout,
+          "multihost: the selftest failed")
+    return row
+
+
+K1_WIDE = dict(b=8, n=16384, w=20000, seed=17)
+
+
+def phase_k1_wide(torch, dev, d: Path) -> dict:
+    """K1 past the shared-memory cap: W = 20000 (the rings in a global
+    scratch buffer) on 8 rows of 16384 anchors, every predecessor in band
+    and a chain step 14465 anchors long (synthetic.wide_band_anchors),
+    sensitive parameters: bit-equal to the plain fill, and finding the
+    chains W = 14464 misses; kernel timed (median
+    of 5) beside the shared-memory path at W = 14464, the plain fill once;
+    then the CLI maps the fixture with --max-iterations 20000 on cuda."""
+    from rawhash_tpu_torch.chain.device import chain_fill_batch
+    from rawhash_tpu_torch.chain.fill import (
+        GLOBAL_RING_BUDGET, MAX_ITER_CAP, chain_fill, global_ring_plan,
+    )
+    from rawhash_tpu_torch.cli import main as cli
+    from rawhash_tpu_torch.map.engine import fill_params
+    from rawhash_tpu_torch.synthetic import options, wide_band_anchors, write_fixture
+
+    c = K1_WIDE
+    prm = dict(fill_params(*options("sensitive")), max_iter=c["w"])
+    host = wide_band_anchors(c["seed"], c["b"], c["n"], prm["max_dist_q"],
+                             MAX_ITER_CAP + 1)
+    args = [torch.from_numpy(np.ascontiguousarray(x).view(np.int32)).to(dev)
+            for x in host]
+    n0 = chain_fill.launches
+    f, p = chain_fill(*args, **prm)  # also the timing's warm-up
+    launches = chain_fill.launches - n0
+    (f0, p0), plain_ms = timed_once(torch, lambda: chain_fill_batch(*args, **prm))
+    err = max(int((f - f0).abs().max()), int((p - p0).abs().max()))
+    check(torch.equal(f, f0) and torch.equal(p, p0),
+          f"k1_wide: kernel disagrees with the plain fill (max abs err {err})")
+    cap = dict(prm, max_iter=MAX_ITER_CAP)
+    f_cap, _ = chain_fill(*args, **cap)
+    check(bool((f > f_cap).any()), "k1_wide: W = 20000 finds no chain W = 14464 misses")
+    ms = cuda_ms(torch, lambda: chain_fill(*args, **prm), 5)
+    cap_ms = cuda_ms(torch, lambda: chain_fill(*args, **cap), 5)
+    budget = min(GLOBAL_RING_BUDGET, torch.cuda.mem_get_info(dev)[0] // 4)
+    warps, rows = global_ring_plan(c["b"], c["w"], budget)
+    row = dict(**c, anchors=int(host[3].sum()), launches=launches,
+               warps=warps, rows_a_launch=rows,
+               scratch_bytes=rows * warps * 16 * (c["w"] + 64),
+               max_abs_err=err, ms=ms, plain_ms=plain_ms, shared_cap_ms=cap_ms,
+               improved_chain_ends=int((f > f_cap).sum()), **fill_bound(*args, prm))
+
+    write_fixture(d)
+    idx = d / "ref.rhi.npz"
+    check(cli(["-x", "sensitive", "-p", str(d / "pore.model"), "-d", str(idx),
+               str(d / "ref.fa"), "--device", "cuda"]) == 0, "k1_wide: index build failed")
+    paf = d / "wide.paf"
+    n0 = chain_fill.launches
+    rc = cli(["-x", "sensitive", "--max-iterations", str(c["w"]), "--max-anchors",
+              "512", str(idx), str(d / "reads.sig.npz"), "--device", "cuda",
+              "-o", str(paf)])
+    lines = [l.split("\t") for l in paf.read_text().splitlines()] if rc == 0 else []
+    row.update(cli_rc=rc, cli_mapped=sum(l[4] in "+-" for l in lines),
+               cli_fill_launches=chain_fill.launches - n0)
+    emit({"phase": "k1_wide", **row})
+    check(rc == 0 and row["cli_mapped"] >= 5,
+          f"k1_wide: the CLI at --max-iterations {c['w']} on cuda (rc {rc})")
+    return row
+
+
 def main_path(name, fn, counters) -> tuple:
     """Run one main-path phase with every kernel's launch counter set to 0
     just before it; (its result, {kernel: launches in it})."""
@@ -1088,10 +1300,12 @@ def main() -> int:
             "d4": (100_000_000, "sensitive", 1, 3000, 4096, 13),
         }
         caught = {c: {} for c in cells}  # each cell's widest fill/tail calls
+        kept = {"d1": {}, "d2": {}}  # their first batches, for the dist phase
         for name, cell in cells.items():
             runs[name] = main_path(
                 name, lambda: phase_deployment(torch, dev, name, *cell,
-                                               caught[name]), counters)
+                                               caught[name], keep=kept.get(name)),
+                counters)
         (d1, _), (d2, n2), (d4, n4) = (runs[c] for c in cells)
         # the kernels on each device-tail cell's own widest tail call: D2's
         # backtrack held on all its rows, D4's fill and backtrack on 8
@@ -1108,6 +1322,22 @@ def main() -> int:
             torch, dev, {c: caught[c].pop("fill") for c in cells})
         caught.clear()
         emit({"phase": "fill_warps_done", "seconds": time.perf_counter() - t0})
+
+        # the sharded engine in a one-rank NCCL group against the
+        # single-device engine on D1's and D2's first batches; the
+        # multi-host selftest; K1 past the shared-memory cap
+        t0 = time.perf_counter()
+        refs = dist_references(torch, dev, kept)
+        emit({"phase": "dist_references_done", "seconds": time.perf_counter() - t0})
+        runs["dist"] = main_path("dist", lambda: phase_dist(torch, dev, kept, refs),
+                                 counters)
+        kept.clear()
+        for name, fn in (("multihost", lambda: phase_multihost(torch)),
+                         ("k1_wide", lambda: phase_k1_wide(torch, dev, Path(tmp)))):
+            t0 = time.perf_counter()
+            with tempfile.TemporaryDirectory() as tmp:
+                timed[name] = fn()
+            emit({"phase": f"{name}_done", "seconds": time.perf_counter() - t0})
 
         # the other mapping modes: all-vs-all, DTW, RMQ, --bw-long
         def long_gaps(mo):
@@ -1145,6 +1375,7 @@ def main() -> int:
               f"d4: widest backtrack {d4['backtrack_max_width']} <= 32768")
         fill_only = ("d1", "ava_quality", "dtw", "rmq", "bw_long")
         for name, n in (("fixture", runs["fixture"][1]), ("d2", n2), ("d4", n4),
+                        ("dist", runs["dist"][1]),
                         ("ava", runs["ava"][1]), ("ava_tails", runs["ava_tails"][1]),
                         *((c, {"chain_fill": runs[c][1]["chain_fill"]}) for c in fill_only)):
             check(all(v > 0 for v in n.values()),
@@ -1162,7 +1393,7 @@ def main() -> int:
             "source": "rawhash_tpu_torch/csrc/chain_fill.cu",
             "replaces": "rawhash_tpu/chain/pallas_fill.py:226",
             "launches": launches["chain_fill"],
-            "max_abs_err": max(r["max_abs_err"] for r in k1 + [d4f, avaf]),
+            "max_abs_err": max(r["max_abs_err"] for r in k1 + [d4f, avaf, timed["k1_wide"]]),
             "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
             "bound_ms": main_shape["bound_ms"], "bound_by": bound_by(main_shape),
             "library_ms": None,
@@ -1170,6 +1401,10 @@ def main() -> int:
             # their held rows)
             **{c: {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "segments")}
                for c, r in (("d4", d4f), ("ava", avaf))},
+            # past the shared-memory cap: W = 20000, the rings in global memory
+            "wide": {k: timed["k1_wide"][k] for k in (
+                "b", "n", "w", "ms", "plain_ms", "bound_ms", "shared_cap_ms",
+                "launches", "warps", "max_abs_err")},
         }]
         # one kernel for both TPU kernels: K2's row at the D2 regime
         # (B=256, N=16384); K3's at D4's main-path inputs past 32768 (the
@@ -1212,6 +1447,7 @@ def main() -> int:
         emit({"kernels": kernels,
               **{f"{c}_bp_per_s": runs[c][0]["bp_per_s"]
                  for c in (*cells, "ava", "dtw", "rmq", "bw_long")},
+              "dist_bp_per_s": {c: r["bp_per_s"] for c, r in runs["dist"][0].items()},
               "seconds": time.perf_counter() - t_all})
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

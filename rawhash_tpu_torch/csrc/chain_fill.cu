@@ -40,6 +40,13 @@
 //   stepped and the next 32, fetched ahead of use with cp.async.  Ring
 //   slots are incremented and wrapped, never taken modulo W.  f/p are
 //   stored coalesced, 32 at a time.
+// - Past the W at which not one ring fits a block's shared memory
+//   (MAX_ITER_CAP = 14464 in chain/fill.py), the same kernel keeps each
+//   warp's ring in a global-memory scratch buffer that the wrapper
+//   allocates (kGlobalRing; layout rh_ring_offset in chain_fill.cuh),
+//   staged with plain loads and stores that __syncwarp orders.  That path
+//   is for correctness at any --max-iterations, not for speed: every ring
+//   access is a global-memory (L1/L2) access.
 #include <cuda_runtime.h>
 
 #include "chain_fill.cuh"
@@ -73,18 +80,22 @@ __device__ __forceinline__ int wrap(int s, int size) {
   return s >= size ? s - size : s;
 }
 
+// kGlobalRing: the rings are in `ring` (rh_ring_offset of blockIdx.x, the
+// row within this launch), not in shared memory
+template <bool kGlobalRing>
 __global__ void __launch_bounds__(32 * kWarps)
     chain_fill_kernel(const int* __restrict__ key,
                       const int* __restrict__ tpos,
                       const int* __restrict__ qpos,
                       const int* __restrict__ n_anchors, int* __restrict__ f,
-                      int* __restrict__ p, int n, RhParams P) {
+                      int* __restrict__ p, int n, RhParams P, int* ring) {
   extern __shared__ int smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int warps = blockDim.x >> 5;
   const int R = P.w + RH_FILL_AHEAD;  // ring slots of one warp
-  int* rk = smem + (size_t)warp * 4 * R;
+  int* rk = kGlobalRing ? ring + rh_ring_offset(blockIdx.x, warp, warps, P.w)
+                        : smem + (size_t)warp * 4 * R;
   int* rt = rk + R;
   int* rq = rt + R;
   int* rf = rq + R;
@@ -121,15 +132,23 @@ __global__ void __launch_bounds__(32 * kWarps)
   if (s0 >= hi) return;  // no segment starts in the share
 
   // anchors [a0, a0 + 32) into ring slots from sl on, as one cp.async group
+  // (plain copies into a global ring: the __syncwarp before the block is
+  // read orders them)
   auto stage = [&](int a0, int sl) {
     const int a = a0 + lane;
     if (a < n_a) {
       const int s = wrap(sl + lane, R);
-      cp_async4(rk + s, key + a);
-      cp_async4(rt + s, tpos + a);
-      cp_async4(rq + s, qpos + a);
+      if constexpr (kGlobalRing) {
+        rk[s] = key[a];
+        rt[s] = tpos[a];
+        rq[s] = qpos[a];
+      } else {
+        cp_async4(rk + s, key + a);
+        cp_async4(rt + s, tpos + a);
+        cp_async4(rq + s, qpos + a);
+      }
     }
-    cp_async_commit();
+    if constexpr (!kGlobalRing) cp_async_commit();
   };
 
   RhMii m = {-1, 0, 0, 0, RH_INT32_MIN};
@@ -142,7 +161,7 @@ __global__ void __launch_bounds__(32 * kWarps)
     const int bs_next = wrap(bs + 32, R);
     __syncwarp();  // every lane is done with the slots the next block takes
     stage(i0 + 32, bs_next);
-    cp_async_wait_prev();
+    if constexpr (!kGlobalRing) cp_async_wait_prev();
     __syncwarp();  // block i0 is in the ring, from every lane's copies
 
     const int a = i0 + lane;
@@ -251,7 +270,7 @@ __global__ void __launch_bounds__(32 * kWarps)
     i0 += 32;
     bs = bs_next;
   }
-  cp_async_wait_all();
+  if constexpr (!kGlobalRing) cp_async_wait_all();
 }
 
 }  // namespace
@@ -276,12 +295,12 @@ extern "C" int rh_chain_fill_warps(const int* key, const int* tpos,
   const size_t smem = sizeof(int) * 4 * (size_t)(w + RH_FILL_AHEAD) * warps;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        chain_fill_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        chain_fill_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  chain_fill_kernel<<<b, 32 * warps, smem, (cudaStream_t)stream>>>(
-      key, tpos, qpos, n_anchors, f, p, n, P);
+  chain_fill_kernel<false><<<b, 32 * warps, smem, (cudaStream_t)stream>>>(
+      key, tpos, qpos, n_anchors, f, p, n, P, nullptr);
   return (int)cudaGetLastError();
 }
 
@@ -294,4 +313,38 @@ extern "C" int rh_chain_fill(const int* key, const int* tpos, const int* qpos,
   return rh_chain_fill_warps(key, tpos, qpos, n_anchors, f, p, b, n, w,
                              q_span, max_dist_t, max_dist_q, bw, pen_gap,
                              pen_skip, kWarps, stream);
+}
+
+// The global-ring path's plan for a batch of b rows at W = w: warps a read
+// and rows a launch, for a scratch of at most `budget` bytes (chain_fill.cuh:
+// rh_fill_global_warps, rh_fill_global_rows).  The scratch the wrapper
+// allocates holds rows * warps * rh_ring_ints(w) ints.
+extern "C" void rh_chain_fill_global_plan(int b, int w, long long budget,
+                                          int* warps, int* rows) {
+  *warps = rh_fill_global_warps(w, kWarps, budget);
+  *rows = rh_fill_global_rows(b, w, *warps, budget);
+}
+
+// The launch with the rings in `ring` (the plan's scratch), `rows` rows at
+// a time; any W >= 1.  Returns the first launch's error (0 on success).
+extern "C" int rh_chain_fill_global(const int* key, const int* tpos,
+                                    const int* qpos, const int* n_anchors,
+                                    int* f, int* p, int b, int n, int w,
+                                    int q_span, int max_dist_t, int max_dist_q,
+                                    int bw, float pen_gap, float pen_skip,
+                                    int warps, int rows, int* ring,
+                                    void* stream) {
+  if (w < 1 || warps < 1 || warps > kWarps || rows < 1)
+    return (int)cudaErrorInvalidValue;
+  RhParams P = {q_span, max_dist_t, max_dist_q, bw, w, pen_gap, pen_skip};
+  for (int r0 = 0; r0 < b; r0 += rows) {
+    const int nb = b - r0 < rows ? b - r0 : rows;
+    const size_t off = (size_t)r0 * n;
+    chain_fill_kernel<true><<<nb, 32 * warps, 0, (cudaStream_t)stream>>>(
+        key + off, tpos + off, qpos + off, n_anchors + r0, f + off, p + off, n,
+        P, ring);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  return 0;
 }

@@ -299,31 +299,58 @@ RH_HD int rh_fill_warps(int w, int max_warps) {
   return fit < max_warps ? (int)fit : max_warps;
 }
 
+// Past the W at which not one ring fits (MAX_ITER_CAP in chain/fill.py) the
+// rings live in global memory: a scratch buffer of `rows` x `warps` rings of
+// rh_ring_ints(w) ints each, the ring of (row, warp) at rh_ring_offset, row
+// counted within one launch.  The kernel then runs max_warps warps a read,
+// fewer only where one row's rings would pass `budget` bytes, and the
+// wrapper launches it over the batch `rows` rows at a time (rows from
+// rh_fill_global_rows), so the scratch never passes the budget unless one
+// warp's ring alone does.
+RH_HD long long rh_ring_ints(int w) {
+  return 4LL * ((long long)w + RH_FILL_AHEAD);
+}
+
+RH_HD long long rh_ring_offset(int row, int warp, int warps, int w) {
+  return ((long long)row * warps + warp) * rh_ring_ints(w);
+}
+
+RH_HD int rh_fill_global_warps(int w, int max_warps, long long budget) {
+  if (w < 1 || max_warps < 1) return 0;
+  const long long fit = budget / (4LL * rh_ring_ints(w));
+  return fit < 1 ? 1 : (fit < max_warps ? (int)fit : max_warps);
+}
+
+RH_HD int rh_fill_global_rows(int b, int w, int warps, long long budget) {
+  const long long fit = budget / (4LL * rh_ring_ints(w) * warps);
+  return fit < 1 ? 1 : (fit < b ? (int)fit : b);
+}
+
 // Serial fill of one segment [s, e): s a segment start, e the next start or
 // n_anchors.  Anchor i scans only its in-band suffix, j = i-1, i-2, ...,
 // down to max(i - w, s), and stops at the first predecessor out of band; the
 // window's out-of-band slots can neither score nor count, so rh_step sees
-// what rh_fill_read's full window gives it.  ring holds 4*w ints (key, tpos,
-// qpos, f of the segment's last w anchors) and needs no clearing; its slot
-// is incremented, never recomputed, and max_ii starts empty at s.  The
-// CUDA kernel fills a segment in this order and scores the same suffixes,
-// 32 predecessors at a time.
-RH_HD void rh_fill_segment(const int* key, const int* tpos, const int* qpos,
-                           int s, int e, int* f, int* p, int* ring,
-                           const RhParams& P) {
+// what rh_fill_read's full window gives it.  ring holds four planes of
+// `size` >= w ints (key, tpos, qpos, f), anchor s in slot `cur` of each,
+// and needs no clearing; its slot is incremented, never recomputed, and
+// max_ii starts empty at s.  The CUDA kernel fills a segment in this order
+// and scores the same suffixes, 32 predecessors at a time, in a ring of
+// w + RH_FILL_AHEAD slots.
+RH_HD void rh_fill_segment_at(const int* key, const int* tpos, const int* qpos,
+                              int s, int e, int* f, int* p, int* ring,
+                              int size, int cur, const RhParams& P) {
   int* rk = ring;
-  int* rt = ring + P.w;
-  int* rq = ring + 2 * P.w;
-  int* rf = ring + 3 * P.w;
+  int* rt = ring + size;
+  int* rq = ring + 2 * size;
+  int* rf = ring + 3 * size;
   RhMii m = {-1, 0, 0, 0, RH_INT32_MIN};
-  int cur = 0;  // ring slot of anchor i
   for (int i = s; i < e; ++i) {
     const int k_i = key[i], t_i = tpos[i], q_i = qpos[i];
     const int reach = i - s < P.w ? i - s : P.w;
     RhScan a = rh_scan_init();
     int n_in = 0;
     for (; n_in < reach; ++n_in) {
-      const int sl = rh_ring_back(cur, n_in + 1, P.w);
+      const int sl = rh_ring_back(cur, n_in + 1, size);
       const RhSlot r =
           rh_slot(k_i, t_i, q_i, rk[sl], rt[sl], rq[sl], rf[sl], 1, P);
       if (!r.in_band) break;
@@ -331,7 +358,7 @@ RH_HD void rh_fill_segment(const int* key, const int* tpos, const int* qpos,
     }
     RhWindow win = {a.best, a.best_j, n_in, a.re_j, 0, 0, 0, RH_INT32_MIN};
     if (n_in > 0) {
-      const int rs = rh_ring_back(cur, i - a.re_j, P.w);
+      const int rs = rh_ring_back(cur, i - a.re_j, size);
       win.re_key = rk[rs];
       win.re_tpos = rt[rs];
       win.re_qpos = rq[rs];
@@ -342,6 +369,40 @@ RH_HD void rh_fill_segment(const int* key, const int* tpos, const int* qpos,
     rt[cur] = t_i;
     rq[cur] = q_i;
     rf[cur] = f[i];
-    cur = cur + 1 == P.w ? 0 : cur + 1;
+    cur = cur + 1 == size ? 0 : cur + 1;
+  }
+}
+
+// The same with a ring of exactly w slots, anchor s in slot 0.
+RH_HD void rh_fill_segment(const int* key, const int* tpos, const int* qpos,
+                           int s, int e, int* f, int* p, int* ring,
+                           const RhParams& P) {
+  rh_fill_segment_at(key, tpos, qpos, s, e, f, p, ring, P.w, 0, P);
+}
+
+// What warp `warp` of `warps` fills of a row, serially, in the kernel's
+// order and ring layout: the segments that start in its share [lo, hi) of
+// the n_a live anchors, in one ring of w + RH_FILL_AHEAD slots, anchor a in
+// slot (a - s0) mod size from the share's first segment start s0 on.
+RH_HD void rh_fill_share(const int* key, const int* tpos, const int* qpos,
+                         int n_a, int warp, int warps, int* f, int* p,
+                         int* ring, const RhParams& P) {
+  const int lo = (int)((long long)n_a * warp / warps);
+  const int hi = (int)((long long)n_a * (warp + 1) / warps);
+  const int size = P.w + RH_FILL_AHEAD;
+  int s0 = -1;
+  for (int a = lo; a < hi && s0 < 0; ++a)
+    if (rh_segment_start(a, a > 0 ? key[a - 1] : 0, a > 0 ? tpos[a - 1] : 0,
+                         key[a], tpos[a], P))
+      s0 = a;
+  if (s0 < 0) return;
+  for (int s = s0; s < hi;) {
+    int e = s + 1;
+    while (e < n_a &&
+           !rh_segment_start(e, key[e - 1], tpos[e - 1], key[e], tpos[e], P))
+      ++e;
+    rh_fill_segment_at(key, tpos, qpos, s, e, f, p, ring, size,
+                       (int)((s - s0) % size), P);
+    s = e;
   }
 }

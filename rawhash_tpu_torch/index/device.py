@@ -93,16 +93,15 @@ def lookup_counts(idx: DeviceIndex, hashes: torch.Tensor, valid: torch.Tensor):
     return torch.where(found, start, 0), count
 
 
-def expand_hits(idx: DeviceIndex, start: torch.Tensor, count: torch.Tensor,
-                a_cap: int):
-    """CSR expansion of per-seed hit runs into a_cap anchor slots per read.
-
-    Returns (seed_idx [B,A], hit [B,A] int64 position words, slot_valid
-    [B,A], n_hits [B], overflow [B]).  Slot n belongs to the seed whose
-    cumulative-count interval holds n; the hit is that seed's
-    (n - cum_before)-th occurrence."""
-    b, s = start.shape
-    dev = start.device
+def expand_slots(count: torch.Tensor, a_cap: int):
+    """The CSR slot assignment of per-seed hit counts [B,S] to a_cap anchor
+    slots per read.  Slot n belongs to the seed whose cumulative-count
+    interval holds n, as its (n - cum_before)-th occurrence.  Returns
+    (seed_idx [B,A], occurrence [B,A], slot_valid [B,A], n_hits [B],
+    overflow [B]); the sharded lookup (parallel/dist.py) assigns slots the
+    same way from the all-reduced counts."""
+    b, s = count.shape
+    dev = count.device
     ccum = torch.cumsum(count, dim=1)
     n_hits = ccum[:, -1]
     cum_before = ccum - count
@@ -116,11 +115,22 @@ def expand_hits(idx: DeviceIndex, start: torch.Tensor, count: torch.Tensor,
     n_kept = torch.clamp_max(n_hits, a_cap)
     slot_valid = slots < n_kept[:, None]
     occ = slots - torch.gather(cum_before, 1, seed_c)
+    overflow = torch.clamp_min(n_hits - a_cap, 0)
+    return seed_c, occ, slot_valid, n_kept, overflow
+
+
+def expand_hits(idx: DeviceIndex, start: torch.Tensor, count: torch.Tensor,
+                a_cap: int):
+    """CSR expansion of per-seed hit runs into a_cap anchor slots per read
+    (expand_slots), each slot's hit fetched from the table.
+
+    Returns (seed_idx [B,A], hit [B,A] int64 position words, slot_valid
+    [B,A], n_hits [B], overflow [B])."""
+    seed_c, occ, slot_valid, n_kept, overflow = expand_slots(count, a_cap)
     fetch = torch.gather(start, 1, seed_c) + occ
     fetch = torch.where(slot_valid, fetch, 0)
     if idx.pos.shape[0] == 0:
         hit = torch.zeros_like(fetch)
     else:
         hit = idx.pos[fetch]
-    overflow = torch.clamp_min(n_hits - a_cap, 0)
     return seed_c, hit, slot_valid, n_kept, overflow

@@ -8,7 +8,11 @@ single device):
 and decides per read.  `chunk_step_tail` goes on on the device: chain
 backtrack -> compaction -> carried-anchor re-pick, so only per-chain
 summaries leave it and the carried anchors stay on it (reference: the body
-of ri_map_frag, rmap.cpp:210-387, with lchain.c:95-281).
+of ri_map_frag, rmap.cpp:210-387, with lchain.c:95-281).  The lookup and
+expansion is a parameter of both: `lookup_expand` on the device's whole
+table by default, the collective seed merge over a hash-range-sharded
+table in a sharded run (parallel/dist.py); the rest of the step is the
+same code either way.
 """
 
 from __future__ import annotations
@@ -44,6 +48,24 @@ class ChunkOut(NamedTuple):
     carry: NormCarry
     ev_offset: torch.Tensor  # [B] event offset after this chunk
     events: torch.Tensor  # f32 [B, e_cap] this chunk's events (for DTW)
+    # sharded runs: the seed hits this rank's table shard owns, over its
+    # shard column's rows (int64 scalar); None on one device
+    shard_hits: torch.Tensor | None = None
+
+
+class Lookup(NamedTuple):
+    """Seed lookup and CSR expansion of a batch: the anchors in slot order
+    (key bits as u32 values, tpos, qpos; int64 [B, a_cap]), hits kept and
+    past a_cap, rep_len (int32 [B]), and in a sharded run this rank's
+    owned hits (shard_hits)."""
+
+    a_key: torch.Tensor
+    a_tpos: torch.Tensor
+    a_qpos: torch.Tensor
+    n_hits: torch.Tensor
+    overflow: torch.Tensor
+    rep_len: torch.Tensor
+    shard_hits: torch.Tensor | None = None
 
 
 class _Stages:
@@ -105,6 +127,30 @@ def rep_len_from_filtered(qpos_seed, flt, span: int):
     excl = torch.nn.functional.pad(cummax_en[:, :-1], (1, 0))
     contrib = torch.clamp_min(en_i - torch.maximum(st_i, excl), 0)
     return torch.where(flt, contrib, 0).sum(dim=1).to(torch.int32)
+
+
+def unpack_hits(hit, seed_c, qpos_seed, ev_offset):
+    """Anchors from expanded hits: key bits (rev<<31 | tid), tpos and qpos
+    (the seed's event position past the read's earlier events)."""
+    hit_ps = hit & U32_MAX
+    a_key = ((hit_ps & 1) << 31) | (hit >> 32)
+    a_tpos = (hit_ps >> 1) & I32_MAX
+    a_qpos = torch.gather(qpos_seed, 1, seed_c) + ev_offset[:, None]
+    return a_key, a_tpos, a_qpos
+
+
+def lookup_expand(didx: DeviceIndex, hashes, qpos_seed, seed_valid, ev_offset,
+                  *, mid_occ: int, a_cap: int, span: int) -> Lookup:
+    """Seed lookup in the whole table, the occurrence filter and rep_len
+    (reference: ri_collect_matches), then expansion to anchors
+    (collect_seed_hits, rmap.cpp:51)."""
+    start, count = lookup_counts(didx, hashes, seed_valid)
+    flt = count > mid_occ
+    rep_len = rep_len_from_filtered(qpos_seed, flt, span)
+    count = torch.where(flt, 0, count)
+    seed_c, hit, _, n_hits, overflow = expand_hits(didx, start, count, a_cap)
+    return Lookup(*unpack_hits(hit, seed_c, qpos_seed, ev_offset), n_hits,
+                  overflow, rep_len)
 
 
 def merge_sort_fill(
@@ -188,11 +234,13 @@ def chunk_step(
     chn_pen_gap: float, chn_pen_skip: float,
     all_vs_all: bool = False,
     prof=None,
+    lookup=None,
 ) -> ChunkOut:
     """One chunk for a batch of reads.  `prof` (a StageProfiler) receives
     the wall time of each stage: events, sketch, lookup+expand, sort,
     fill.  With `all_vs_all`, hits go through merge_sort_fill's rank
-    filter."""
+    filter.  `lookup` takes lookup_expand's place (its arguments after
+    didx, which it does not read): the sharded seed merge."""
     stages = _Stages(prof, sig.device) if prof is not None else None
     span = k + e - 1
     sig = sig.to(torch.float32)  # signal may arrive as f16
@@ -210,23 +258,17 @@ def chunk_step(
     )
     ev_offset2 = ev_offset + torch.where(processed, n_ev, 0)
 
-    # seed lookup + occurrence filter (reference: ri_collect_matches)
-    start, count = lookup_counts(didx, hashes, seed_valid)
-    flt = count > mid_occ
-    rep_len = rep_len_from_filtered(qpos_seed, flt, span)
-    count = torch.where(flt, 0, count)
-
-    # expansion to anchors (reference: collect_seed_hits, rmap.cpp:51)
-    seed_c, hit, _, n_hits, overflow = expand_hits(didx, start, count, a_cap)
-    a_qpos = torch.gather(qpos_seed, 1, seed_c) + ev_offset[:, None]
-    hit_ps = hit & U32_MAX
-    a_key = ((hit_ps & 1) << 31) | (hit >> 32)
-    a_tpos = (hit_ps >> 1) & I32_MAX
+    if lookup is None:
+        lk = lookup_expand(didx, hashes, qpos_seed, seed_valid, ev_offset,
+                           mid_occ=mid_occ, a_cap=a_cap, span=span)
+    else:
+        lk = lookup(hashes, qpos_seed, seed_valid, ev_offset,
+                    mid_occ=mid_occ, a_cap=a_cap, span=span)
     if stages is not None:
         stages.mark("lookup+expand")
 
     s_key, s_tpos, s_qpos, n_anchors, f, p = merge_sort_fill(
-        a_key, a_tpos, a_qpos, n_hits,
+        lk.a_key, lk.a_tpos, lk.a_qpos, lk.n_hits,
         prev_key, prev_tpos, prev_qpos, n_prev, q_rank, target_rank,
         span=span, max_dist_t=max_dist_t, max_dist_q=max_dist_q,
         bw=bw, max_iter=max_iter,
@@ -235,9 +277,10 @@ def chunk_step(
     )
     return ChunkOut(
         key=s_key, tpos=s_tpos, qpos=s_qpos, f=f, p=p, n_anchors=n_anchors,
-        rep_len=rep_len, n_ev=n_ev, processed=processed,
-        overflow=overflow.to(torch.int32), carry=carry2,
+        rep_len=lk.rep_len, n_ev=n_ev, processed=processed,
+        overflow=lk.overflow.to(torch.int32), carry=carry2,
         ev_offset=ev_offset2.to(torch.int32), events=events,
+        shard_hits=lk.shard_hits,
     )
 
 
@@ -258,6 +301,7 @@ class ChunkOutTail(NamedTuple):
     n_prev: torch.Tensor  # i32 [B]
     carry: NormCarry
     ev_offset: torch.Tensor  # i32 [B]
+    shard_hits: torch.Tensor | None = None  # as ChunkOut's
 
 
 def chunk_step_tail(
@@ -281,8 +325,8 @@ def chunk_step_tail(
     """chunk_step, then the chain backtrack and compaction on the device
     (reference: rmap.cpp:210-387 with mg_chain_backtrack + compact_a,
     lchain.c:95-281).  `step` holds chunk_step's keyword parameters
-    (all_vs_all among them); `prof` also receives the backtrack and compact
-    stages."""
+    (all_vs_all and lookup among them); `prof` also receives the backtrack
+    and compact stages."""
     n_prev = torch.where(active != 0, n_prev, 0)
     out = chunk_step(didx, sig, slen, carry, ev_offset, prev_key, prev_tpos,
                      prev_qpos, n_prev, q_rank, target_rank, prof=prof, **step)
@@ -329,5 +373,5 @@ def tail_finish(out: ChunkOut, *, span: int, bw: int, min_cnt: int,
     return ChunkOutTail(
         summaries=summaries, scalars=scalars, prev_key=pk, prev_tpos=pt,
         prev_qpos=pq, n_prev=take.to(torch.int32), carry=out.carry,
-        ev_offset=out.ev_offset,
+        ev_offset=out.ev_offset, shard_hits=out.shard_hits,
     )

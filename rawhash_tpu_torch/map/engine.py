@@ -1,5 +1,5 @@
 """Real-time mapping engine: batch chunk loop, chain tail, decisions and
-PAF records (port of rawhash_tpu/map/engine.py, single device).
+PAF records (port of rawhash_tpu/map/engine.py).
 
 Per batch of reads it keeps the per-read carry (normalisation sums, event
 offset, carried chain anchors) and runs one device chunk step per chunk
@@ -19,12 +19,22 @@ RAWHASH_TPU_DEVICE_TAIL=1 forces the device tail, RAWHASH_TPU_NO_DEVICE_TAIL=1
 forbids it.  The modes that need every anchor or event on the host (--rmq,
 --bw-long, --dtw-evaluate-chains) keep the host tail.  Reads leave the loop
 as soon as a decision fires.  Batches run one after another.
+
+With --n-shards (an initialised process group, parallel/dist.py) the table
+is hash-range-sharded over the ranks and each rank steps its block of the
+batch's rows (the batch padded to a multiple of the world size).  The host
+tail's inputs are all-gathered into whole-batch arrays; on the device tail
+the backtrack runs on each rank's rows, its carried anchors stay there, and
+only scalars and chain summaries are gathered.  Every rank then runs the
+same host logic (decisions, regrows, quarantine, tail switch) on the same
+gathered values, so no rank's control flow departs from another's.
 """
 
 from __future__ import annotations
 
 import bisect
 import dataclasses
+import functools
 import os
 import sys
 import time
@@ -98,8 +108,8 @@ def _unpack_xy(ax: np.ndarray, ay: np.ndarray):
 
 
 def unsupported_options(mopt: MapOptions) -> list:
-    """Mapping options this engine does not implement yet."""
-    return ["--n-shards"] if mopt.n_shards >= 1 else []
+    """Mapping options this engine does not implement (none)."""
+    return []
 
 
 def fill_params(iopt, mopt: MapOptions) -> dict:
@@ -141,7 +151,14 @@ class MappingEngine:
         self.iopt = index.opts
         self.mopt = mopt
         update_mid_occ(mopt, index)
-        self.didx = DeviceIndex.from_host(index, self.device)
+        # sharded run: this rank's table shard in place of the whole table
+        self.dist = self.didx = None
+        if mopt.n_shards >= 1:
+            from ..parallel.dist import DistContext
+
+            self.dist = DistContext(index, mopt.n_shards, self.device)
+        else:
+            self.didx = DeviceIndex.from_host(index, self.device)
         self.span = self.iopt.k + self.iopt.e - 1
         self.fill_params = fill_params(self.iopt, mopt)
         # all-vs-all name ranks: the reference skips a target whose name
@@ -365,7 +382,10 @@ class _BatchState:
     """All per-batch mapping state across the chunk loop."""
 
     def __init__(self, engine: MappingEngine, reads: list):
-        self.b = b = len(reads)
+        self.b = len(reads)
+        # rows on the device: a sharded run pads the batch to a multiple of
+        # the world size with rows that are never active (slen 0)
+        self.b_dev = b = engine.dist.pad_batch(self.b) if engine.dist else self.b
         self.names = [n for n, _ in reads]
         self.sigs = [np.asarray(s, dtype=np.float32) for _, s in reads]
         self.qlens = np.array([s.shape[0] for s in self.sigs], dtype=np.int64)
@@ -379,9 +399,10 @@ class _BatchState:
         self.n_prev = np.zeros(b, dtype=np.int32)
         self.q_rank = None  # all-vs-all only: each read's query name rank
         if engine._sorted_names is not None:
-            self.q_rank = torch.tensor([engine._q_rank(n) for n in self.names],
-                                       dtype=torch.int32, device=engine.device)
-        self.active = np.ones(b, dtype=bool)
+            ranks = np.zeros(b, dtype=np.int32)
+            ranks[: self.b] = [engine._q_rank(n) for n in self.names]
+            self.q_rank = torch.from_numpy(ranks).to(engine.device)
+        self.active = np.arange(b) < self.b
         self.last_regs = [[] for _ in range(b)]
         self.c_counts = np.zeros(b, dtype=np.int64)
         self.map_ids = [None] * b
@@ -419,13 +440,46 @@ class _BatchState:
         self.p_cap = new_p
 
 
+def _block(engine: MappingEngine, x):
+    """This rank's rows of a whole-batch tensor or NormCarry in a sharded
+    run (x itself on one device, and for None)."""
+    return x if engine.dist is None or x is None else engine.dist.block(x)
+
+
+def _whole(engine: MappingEngine, x):
+    """The whole batch of a tensor or NormCarry of which each rank holds
+    its rows, gathered from every rank in a sharded run (x itself on one
+    device); its time, device synchronised, is the "gather" stage."""
+    if engine.dist is None:
+        return x
+    sync = torch.cuda.synchronize if engine.device.type == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    out = engine.dist.gather(x)
+    sync()
+    engine.profiler.add("gather", time.perf_counter() - t0)
+    return out
+
+
+def _count_shard_hits(engine: MappingEngine, out) -> None:
+    """Add a chunk's per-rank owned seed hits to stats["shard_hits"]
+    (int64 [world], rank order: (dp, shard) flattened)."""
+    if engine.dist is not None:
+        sh = _whole(engine, out.shard_hits.reshape(1)).cpu().numpy()
+        tot = engine.stats.get("shard_hits")
+        engine.stats["shard_hits"] = sh if tot is None else tot + sh
+
+
 def _step(engine: MappingEngine, st: _BatchState, inputs, a_cap: int, q_rank):
     """The device chunk step on `inputs` (sig, slen, carry, ev_offset and
     the carried-anchor planes, all on the engine's device) for the reads of
-    query name ranks `q_rank`."""
+    query name ranks `q_rank`.  In a sharded run these are this rank's
+    rows, and so is the output."""
     mo, io = engine.mopt, engine.iopt
-    return chunk_step(
-        engine.didx, *inputs, q_rank, engine._target_rank,
+    step = (functools.partial(chunk_step, engine.didx) if engine.dist is None
+            else engine.dist.step)
+    return step(
+        *inputs, q_rank, engine._target_rank,
         diff=io.diff, w=io.w, e=io.e, q=io.q, k=io.k,
         fine_min=io.fine_min, fine_max=io.fine_max, fine_range=io.fine_range,
         window_length1=mo.window_length1, window_length2=mo.window_length2,
@@ -438,11 +492,12 @@ def _step(engine: MappingEngine, st: _BatchState, inputs, a_cap: int, q_rank):
     )
 
 
-def _to_host(out, width: int):
+def _to_host(engine: MappingEngine, out, width: int):
     """The first `width` sorted anchors (key as u32) and f/p of every row of
-    `out`, as numpy."""
+    `out` (of the whole batch in a sharded run), as numpy."""
     planes = (out.key, out.tpos, out.qpos, out.f, out.p)
-    key, tpos, qpos, f, p = (t[:, :width].cpu().numpy() for t in planes)
+    key, tpos, qpos, f, p = (_whole(engine, t[:, :width].contiguous()).cpu().numpy()
+                             for t in planes)
     return key.view(np.uint32), tpos, qpos, f, p
 
 
@@ -459,23 +514,32 @@ def _quarantine_overflow(engine: MappingEngine, st: _BatchState, inputs,
     if cap_ceil <= st.a_cap:  # hard cap already reached: truncation stands
         engine.stats["hit_overflow"] += int(h_over[rows].sum())
         return {}
+    # the rows' inputs (a sharded run pads them to a multiple of the world
+    # size with zero rows, slen 0)
     idx = torch.as_tensor(rows, device=engine.device)
-    sub = tuple(NormCarry(*(c[idx] for c in x)) if isinstance(x, NormCarry)
-                else x[idx] for x in inputs)
+    n_sub = engine.dist.pad_batch(rows.size) if engine.dist else rows.size
+
+    def pick(x):
+        if isinstance(x, NormCarry):
+            return NormCarry(*(pick(c) for c in x))
+        sel = x[idx]
+        pad = sel.new_zeros((n_sub - rows.size,) + tuple(sel.shape[1:]))
+        return _block(engine, torch.cat([sel, pad]))
+    sub = tuple(pick(x) for x in inputs)
+    sub_q = None if st.q_rank is None else pick(st.q_rank)
     sub_a = st.a_cap
     need = int(h_over[rows].max())
     while True:
         engine.stats["anchor_regrows"] += 1
         sub_a = min(_pow2_up(max(sub_a + need, 2 * sub_a)), cap_ceil)
-        out = _step(engine, st, sub, sub_a,
-                    None if st.q_rank is None else st.q_rank[idx])
-        over = out.overflow.cpu().numpy()
+        out = _step(engine, st, sub, sub_a, sub_q)
+        over = _whole(engine, out.overflow).cpu().numpy()[: rows.size]
         need = int(over.max())
         if need <= 0 or sub_a >= cap_ceil:
             break
     engine.stats["hit_overflow"] += int(over.sum())
-    n_anc = out.n_anchors.cpu().numpy()
-    key, tpos, qpos, f, p = _to_host(out, width=int(n_anc.max()))
+    n_anc = _whole(engine, out.n_anchors).cpu().numpy()[: rows.size]
+    key, tpos, qpos, f, p = _to_host(engine, out, width=int(n_anc.max()))
     if rows.size > st.b // 4 and sub_a > st.a_cap:
         # a quarter of the batch overflowed: later chunks of this batch
         # start at the converged capacity
@@ -493,8 +557,8 @@ def _run_chunk(engine: MappingEngine, st: _BatchState) -> None:
     dev = engine.device
     c = st.chunk_idx
     no_adaptive = bool(mo.flag & MapFlag.NO_ADAPTIVE)
-    chunk = np.zeros((st.b, st.l_chunk), dtype=np.float32)
-    slen = np.zeros(st.b, dtype=np.int32)
+    chunk = np.zeros((st.b_dev, st.l_chunk), dtype=np.float32)
+    slen = np.zeros(st.b_dev, dtype=np.int32)
     for i in np.nonzero(st.active)[0]:
         lo = 0 if no_adaptive else c * st.l_chunk
         seg = st.sigs[i][lo : lo + st.l_chunk]
@@ -519,11 +583,12 @@ def _run_chunk(engine: MappingEngine, st: _BatchState) -> None:
         torch.from_numpy(st.n_prev).to(dev),
     )
     engine.profiler.add("transfer", time.perf_counter() - t0)
-    out = _step(engine, st, inputs, st.a_cap, st.q_rank)
+    out = _step(engine, st, tuple(_block(engine, x) for x in inputs), st.a_cap,
+                _block(engine, st.q_rank))
 
     t0 = time.perf_counter()
     h_nanc, h_rep, h_proc, h_over, h_evoff = (
-        t.cpu().numpy() for t in
+        _whole(engine, t).cpu().numpy() for t in
         (out.n_anchors, out.rep_len, out.processed, out.overflow, out.ev_offset)
     )
     engine.profiler.add("transfer", time.perf_counter() - t0)
@@ -532,7 +597,7 @@ def _run_chunk(engine: MappingEngine, st: _BatchState) -> None:
         # the device tail before any anchor is fetched (the carry is not
         # committed yet and chunk 0 has no carried anchors, so the step is
         # the one the device tail would run)
-        wm0 = int(np.quantile(h_nanc + h_over, 0.95))
+        wm0 = int(np.quantile(h_nanc[: st.b] + h_over[: st.b], 0.95))
         if wm0 > engine.tail_switch_anchors:
             engine._learned_need = max(engine._learned_need, wm0)
             if not engine.device_tail:
@@ -543,20 +608,21 @@ def _run_chunk(engine: MappingEngine, st: _BatchState) -> None:
             st.tail = True
             _run_chunk_tail(engine, st, sig, slen_dev, slen, out)
             return
+    _count_shard_hits(engine, out)
     overrides = _quarantine_overflow(engine, st, inputs, h_over)
     # carry commits only now, so the quarantine reran the same inputs
-    st.carry = out.carry
-    st.ev_offset = out.ev_offset
+    st.carry = _whole(engine, out.carry)
+    st.ev_offset = _whole(engine, out.ev_offset)
     t0 = time.perf_counter()
-    clean = np.ones(st.b, dtype=bool)
+    clean = np.ones(st.b_dev, dtype=bool)
     clean[list(overrides)] = False
     nmax = int(h_nanc[clean].max()) if clean.any() else 0
-    h_key, h_tpos, h_qpos, h_f, h_p = _to_host(out, width=nmax)
+    h_key, h_tpos, h_qpos, h_f, h_p = _to_host(engine, out, width=nmax)
     is_dtw = bool(mo.flag & MapFlag.DTW_EVALUATE_CHAINS)
     if is_dtw:
         # events leave the device as f16, as in the reference engine
-        h_nev = out.n_ev.cpu().numpy()
-        h_events = out.events.half().cpu().numpy().astype(np.float32)
+        h_nev = _whole(engine, out.n_ev).cpu().numpy()
+        h_events = _whole(engine, out.events.half()).cpu().numpy().astype(np.float32)
     engine.profiler.add("transfer", time.perf_counter() - t0)
 
     t_host = now = time.perf_counter()
@@ -643,16 +709,18 @@ def _fetch(engine: MappingEngine, t: torch.Tensor) -> np.ndarray:
 def _step_tail(engine: MappingEngine, st: _BatchState, sig, slen):
     """The device-tail chunk step at the batch's a_cap, on the carried
     anchors the previous chunk left on the device (none for finished reads),
-    up to the fill (as chunk_step_tail runs it)."""
+    up to the fill (as chunk_step_tail runs it).  In a sharded run the
+    carried anchors are this rank's rows only."""
+    rows = tuple(_block(engine, x) for x in (sig, slen, st.carry, st.ev_offset))
     if st.prev_dev is None:
-        z = torch.zeros((st.b, 8), dtype=torch.int32, device=engine.device)
+        z = torch.zeros((rows[0].shape[0], 8), dtype=torch.int32,
+                        device=engine.device)
         prev = (z.long() + 0xFFFFFFFF, z, z, z[:, 0])
     else:
         key, tpos, qpos, n_prev = st.prev_dev
-        active = torch.from_numpy(st.active).to(engine.device)
+        active = _block(engine, torch.from_numpy(st.active).to(engine.device))
         prev = (key, tpos, qpos, torch.where(active, n_prev, 0))
-    return _step(engine, st, (sig, slen, st.carry, st.ev_offset, *prev),
-                 st.a_cap, st.q_rank)
+    return _step(engine, st, (*rows, *prev), st.a_cap, _block(engine, st.q_rank))
 
 
 def _finish_tail(engine: MappingEngine, st: _BatchState, out):
@@ -664,7 +732,7 @@ def _finish_tail(engine: MappingEngine, st: _BatchState, out):
         min_sc=mo.min_chaining_score, k_cap=st.k_cap, p_out=st.p_cap,
         prof=engine.profiler,
     )
-    return tail, _fetch(engine, tail.scalars)
+    return tail, _fetch(engine, _whole(engine, tail.scalars))
 
 
 def _run_chunk_tail(engine: MappingEngine, st: _BatchState, sig, slen_dev,
@@ -678,6 +746,7 @@ def _run_chunk_tail(engine: MappingEngine, st: _BatchState, sig, slen_dev,
     engine.stats["tail_chunks"] += 1
     if out is None:
         out = _step_tail(engine, st, sig, slen_dev)
+    _count_shard_hits(engine, out)
     tail, h_scal = _finish_tail(engine, st, out)
     # zero-truncation retry: grow whichever capacity overflowed and re-run
     # on the same inputs (carry and carried anchors commit only afterwards);
@@ -701,15 +770,16 @@ def _run_chunk_tail(engine: MappingEngine, st: _BatchState, sig, slen_dev,
     engine._learned_need = max(engine._learned_need, st.a_cap)
     engine._learned_kcap = max(engine._learned_kcap, st.k_cap)
     engine._learned_pcap = max(engine._learned_pcap, st.p_cap)
-    st.carry = tail.carry
-    st.ev_offset = tail.ev_offset
+    st.carry = _whole(engine, tail.carry)
+    st.ev_offset = _whole(engine, tail.ev_offset)
     st.prev_dev = (tail.prev_key, tail.prev_tpos, tail.prev_qpos, tail.n_prev)
     act = st.active
     engine.stats["hit_overflow"] += int(h_scal[act, 4].sum())
     engine.stats["prev_overflow"] += int(h_scal[act, 7].sum())
     engine.stats["chain_overflow"] += int(h_scal[act, 6].sum())
     # the summaries of the live chains only: [B, max n_u, 10]
-    summ = _fetch(engine, tail.summaries[:, : int(h_scal[:, 0].max())])
+    summ = _fetch(engine, _whole(engine, tail.summaries[:, : int(h_scal[:, 0].max())]
+                                 .contiguous()))
 
     t_host = now = time.perf_counter()
     c = st.chunk_idx

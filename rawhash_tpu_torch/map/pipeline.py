@@ -2,10 +2,16 @@
 rawhash_tpu/map/pipeline.py::run_pipeline, serial: batches of reads are
 mapped one after another on the calling thread).  Sequence Until stops
 reading once its abundance estimates converge (rmap.cpp:708-734);
---out-quantize prints quantized event streams instead of mapping."""
+--out-quantize prints quantized event streams instead of mapping.
+
+A mapping run with --n-shards joins a process group (torchrun's, or a world
+of one) for its duration.  Every rank reads every read and maps each batch
+together with the others (map/engine.py); only rank 0 writes the PAF, the
+index dump and the log."""
 
 from __future__ import annotations
 
+import os
 import sys
 import time
 
@@ -77,7 +83,7 @@ def _batched_reads(paths, batch_size: int, mini_batch_bytes: int,
         yield batch
 
 
-def load_or_build_index(args, iopt, log):
+def load_or_build_index(args, iopt, log, main: bool = True):
     """The target as an index: loaded from a .rhi.npz or reference .ind
     file, or built from a FASTA (with -p) or from signals (--sig-target)."""
     if is_index_file(args.target):
@@ -98,7 +104,7 @@ def load_or_build_index(args, iopt, log):
             raise ValueError("a pore model (-p) is required to index a sequence file")
         index = build_index_from_sequences(read_fasta(args.target), pore, iopt)
     log(f"built index: {index.n_seq} target(s), {index.n_seeds} seeds")
-    if args.dump_index:
+    if args.dump_index and main:
         if args.dump_index.endswith(".ind"):
             dump_ref_index(args.dump_index, index)
         else:
@@ -113,8 +119,24 @@ def _output(args):
 
 
 def run_pipeline(args, iopt, mopt, t0: float, device: str) -> int:
-    log = lambda msg: print(f"[M::rawhash-tpu-torch::{time.time()-t0:.3f}] {msg}",
-                            file=sys.stderr)
+    if mopt.n_shards >= 1 and args.query and not iopt.flag & IndexFlag.OUT_QUANTIZE:
+        import torch.distributed as dist
+
+        from ..parallel.dist import init_process_group
+
+        dev = init_process_group(device)
+        try:
+            return _run(args, iopt, mopt, t0, dev, main=dist.get_rank() == 0)
+        finally:
+            dist.destroy_process_group()
+    return _run(args, iopt, mopt, t0, device, main=True)
+
+
+def _run(args, iopt, mopt, t0: float, device, main: bool) -> int:
+    """run_pipeline in one process; `main` (rank 0 of a sharded run) writes
+    the output, the index dump and the log."""
+    log = lambda msg: main and print(
+        f"[M::rawhash-tpu-torch::{time.time()-t0:.3f}] {msg}", file=sys.stderr)
     unsupported = unsupported_options(mopt)
     if unsupported:
         print("[ERROR] not supported by the PyTorch engine yet: "
@@ -129,7 +151,7 @@ def run_pipeline(args, iopt, mopt, t0: float, device: str) -> int:
                 out.close()
         return 0
     try:
-        index = load_or_build_index(args, iopt, log)
+        index = load_or_build_index(args, iopt, log, main)
     except ValueError as e:
         print(f"[ERROR] {e}", file=sys.stderr)
         return 1
@@ -144,7 +166,7 @@ def run_pipeline(args, iopt, mopt, t0: float, device: str) -> int:
     if mopt.flag & MapFlag.SEQUENCEUNTIL:
         su = SequenceUntil(index.n_seq, mopt.t_threshold, mopt.tn_samples,
                            mopt.ttest_freq, mopt.tmin_reads)
-    out = _output(args)
+    out = _output(args) if main else open(os.devnull, "w")
     n_reads = n_mapped = total_samples = 0
     try:
         for batch in _batched_reads(args.query, mopt.batch_reads,

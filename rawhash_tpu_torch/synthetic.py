@@ -160,6 +160,27 @@ def clustered_anchors(seed: int, b: int, n: int):
     return key.view(np.int32), tpos, qpos, n_anchors
 
 
+def wide_band_anchors(seed: int, b: int, n: int, max_dist: int, stride: int):
+    """Fill inputs from a seed whose anchors all lie within max_dist (at
+    most a preset's max_dist_t and max_dist_q; the smaller, the less the
+    gap penalty takes from a chain step) of each other on one strand: (key bits as uint32, tpos, qpos, n_anchors)
+    of b rows of n anchors, n/2 to n live, each row one chain segment with
+    every predecessor in band.  Every stride-th anchor lies on the diagonal,
+    the rest at random query positions far off it, so a chain's next
+    anchor is `stride` anchors back: a fill finds it only with a window W
+    of at least `stride` (K1 past the shared-memory cap)."""
+    rng = np.random.default_rng(seed)
+    tpos = np.sort(rng.integers(0, max_dist, (b, n)), axis=1).astype(np.int32)
+    diagonal = np.arange(n)[None, :] % stride == 0
+    qpos = np.where(diagonal, tpos,
+                    rng.integers(10**6, 2 * 10**6, (b, n))).astype(np.int32)
+    key = np.zeros((b, n), np.uint32)
+    key[b // 2:] = 1 << 31
+    n_anchors = rng.integers(n // 2, n + 1, b).astype(np.int32)
+    n_anchors[0] = n
+    return key, tpos, qpos, n_anchors
+
+
 def sparse_anchors(seed: int, b: int, n: int):
     """Fill inputs like D4's from a seed: (key bits as uint32, tpos, qpos,
     n_anchors) of b rows of n anchors, n/2 to n live, mostly lone hits

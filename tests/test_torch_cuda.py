@@ -26,7 +26,7 @@ from rawhash_tpu_torch.profiling.fill_loop_overhead import (  # noqa: E402
 )
 from rawhash_tpu_torch.synthetic import (  # noqa: E402
     ava_fixture_reads, border_anchors, clustered_anchors, options, random_chains,
-    sparse_anchors,
+    sparse_anchors, wide_band_anchors,
 )
 
 
@@ -85,6 +85,28 @@ def test_chain_fill_kernel_matches_plain_on_segments(cuda_device, preset, inputs
     torch.cuda.synchronize()
     assert torch.equal(f, f0) and torch.equal(p, p0)
     assert int((p >= 0).sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preset", ["viral", "sensitive"])
+@pytest.mark.parametrize("w", [MAX_ITER_CAP + 1, 20000])
+def test_chain_fill_kernel_past_the_shared_memory_cap(cuda_device, preset, w):
+    """W past one ring's shared memory: the rings in global scratch, bit
+    for bit against the plain fill, on rows whose every predecessor is in
+    band and whose chains step MAX_ITER_CAP + 1 anchors back, out of reach
+    of the shared-memory path's widest window."""
+    prm = dict(fill_params(*options(preset)), max_iter=w)
+    a = wide_band_anchors(11, 2, 16384, 100, MAX_ITER_CAP + 1)
+    args = [torch.from_numpy(np.ascontiguousarray(x).view(np.int32)).to(cuda_device)
+            for x in a]
+    before = chain_fill.launches
+    f, p = chain_fill(*args, **prm)
+    f0, p0 = chain_fill_batch(*args, **prm)
+    f_cap, _ = chain_fill(*args, **dict(prm, max_iter=MAX_ITER_CAP))
+    torch.cuda.synchronize()
+    assert chain_fill.launches == before + 2
+    assert torch.equal(f, f0) and torch.equal(p, p0)
+    assert (f > f_cap).any()
 
 
 @pytest.mark.cuda

@@ -23,7 +23,7 @@ from rawhash_tpu_torch import cli as torch_cli  # noqa: E402
 from rawhash_tpu_torch.index import ref_ind, serialize  # noqa: E402
 from rawhash_tpu_torch.index.serialize import load_index  # noqa: E402
 from rawhash_tpu_torch.io.sigfile import read_signals  # noqa: E402
-from rawhash_tpu_torch.map.engine import MappingEngine  # noqa: E402
+from rawhash_tpu_torch.map.engine import MappingEngine, unsupported_options  # noqa: E402
 from rawhash_tpu_torch.synthetic import options, write_fixture  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
@@ -83,12 +83,23 @@ def test_capacity_growth_drops_nothing(fixture):
     assert recs[64] == recs[4096]
 
 
-def test_unsupported_modes_are_refused(fixture):
-    """Only sharding (--n-shards) is still refused."""
+@pytest.mark.filterwarnings(
+    "ignore:`torch.distributed.(all_gather_into_tensor|reduce_scatter_tensor)`"
+    ":FutureWarning")
+def test_n_shards_one_matches_the_unsharded_run(fixture):
+    """--n-shards 1 on the CPU (a world of one, gloo) gives the unsharded
+    run's PAF columns 1-12; the engine refuses no option."""
     d, _ = fixture
-    rc = torch_cli.main(["-x", "sensitive", "--n-shards", "1", "--device", "cpu",
-                         str(d / "sensitive.rhi.npz"), str(d / "reads.sig.npz")])
-    assert rc == 1
+    args = ["-x", "sensitive", "--max-anchors", "512", "--device", "cpu",
+            str(d / "sensitive.rhi.npz"), str(d / "reads.sig.npz")]
+    assert torch_cli.main(args + ["-o", str(d / "plain.paf")]) == 0
+    assert torch_cli.main(args + ["--n-shards", "1", "-o", str(d / "shards.paf")]) == 0
+    plain, sharded = _paf(d / "plain.paf"), _paf(d / "shards.paf")
+    assert [r[:12] for r in sharded] == [r[:12] for r in plain]
+    assert sum(r[4] in "+-" for r in plain) >= 5
+    mopt = options("sensitive")[1]
+    mopt.n_shards = 4
+    assert unsupported_options(mopt) == []
 
 
 def test_out_quantize_matches_reference(fixture):

@@ -27,7 +27,7 @@ from rawhash_tpu_torch.cli import main as cli_main  # noqa: E402
 from rawhash_tpu_torch.map.engine import fill_params  # noqa: E402
 from rawhash_tpu_torch.profiling.bounds import fill_segments, fill_work  # noqa: E402
 from rawhash_tpu_torch.synthetic import (  # noqa: E402
-    border_anchors, options, sparse_anchors,
+    border_anchors, options, sparse_anchors, wide_band_anchors,
 )
 
 # the chaining parameters of the viral and sensitive presets, without W
@@ -92,6 +92,21 @@ extern "C" void fill_segment(const int* key, const int* tpos, const int* qpos,
 extern "C" int fill_warps(int w, int max_warps) {
   return rh_fill_warps(w, max_warps);
 }
+extern "C" void fill_share(const int* key, const int* tpos, const int* qpos,
+    int n_a, int warp, int warps, int q_span, int mdt, int mdq, int bw, int w,
+    float pg, float ps, int* f, int* p, int* ring) {
+  rh_fill_share(key, tpos, qpos, n_a, warp, warps, f, p, ring,
+                params(q_span, mdt, mdq, bw, w, pg, ps));
+}
+extern "C" long long ring_offset(int row, int warp, int warps, int w) {
+  return rh_ring_offset(row, warp, warps, w);
+}
+extern "C" int global_warps(int w, int max_warps, long long budget) {
+  return rh_fill_global_warps(w, max_warps, budget);
+}
+extern "C" int global_rows(int b, int w, int warps, long long budget) {
+  return rh_fill_global_rows(b, w, warps, budget);
+}
 """
 
 
@@ -117,6 +132,14 @@ def harness(tmp_path_factory):
     lib.fill_segment.argtypes = [ptr] * 3 + [i] * 7 + [fl] * 2 + [ptr] * 3
     lib.fill_warps.restype = i
     lib.fill_warps.argtypes = [i, i]
+    lib.fill_share.argtypes = [ptr] * 3 + [i] * 8 + [fl] * 2 + [ptr] * 3
+    ll = ctypes.c_longlong
+    lib.ring_offset.restype = ll
+    lib.ring_offset.argtypes = [i] * 4
+    lib.global_warps.restype = i
+    lib.global_warps.argtypes = [i, i, ll]
+    lib.global_rows.restype = i
+    lib.global_rows.argtypes = [i, i, i, ll]
     return lib
 
 
@@ -298,11 +321,97 @@ def test_fill_warps_fit_the_blocks_shared_memory(harness, w):
     assert harness.fill_warps(w, 0) == 0
 
 
-@pytest.mark.parametrize("w", [0, MAX_ITER_CAP + 1])
+@pytest.mark.parametrize("w", [0])
 def test_cli_refuses_max_iterations_the_card_cannot_fill(capsys, w):
-    """On --device cuda the CLI refuses a W whose ring does not fit, before
-    it touches the card or the files."""
+    """On --device cuda the CLI refuses a W below 1, before it touches the
+    card or the files."""
     rc = cli_main(["-x", "sensitive", "--max-iterations", str(w), "--device",
                    "cuda", "missing.rhi.npz", "missing.sig.npz"])
     assert rc != 0
-    assert f"[1, {MAX_ITER_CAP}]" in capsys.readouterr().err
+    assert "--max-iterations must be at least 1" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("w", [MAX_ITER_CAP + 1, 20000])
+def test_cli_takes_max_iterations_past_the_shared_memory_cap(capsys, w):
+    """A W past the shared-memory cap is taken on --device cuda (the fill's
+    global-ring path): the run gets past the options and fails only for
+    want of a card or of the missing files."""
+    rc = cli_main(["-x", "sensitive", "--max-iterations", str(w), "--device",
+                   "cuda", "missing.rhi.npz", "missing.sig.npz"])
+    assert rc != 0
+    assert "--max-iterations" not in capsys.readouterr().err
+
+
+def share_fill(lib, key, tpos, qpos, n_anchors, prm, w, warps, rows, seed):
+    """f, p filled warp share by warp share through rh_fill_share, in a
+    shuffled order, each warp's ring at its rh_ring_offset in one scratch
+    buffer of random garbage laid out as the kernel's global-ring path
+    lays it out (`rows` rows a launch)."""
+    rng = np.random.default_rng(seed)
+    key = np.ascontiguousarray(key).view(np.int32)
+    b, n = key.shape
+    c = (prm["q_span"], max(prm["max_dist_t"], prm["bw"]),
+         max(prm["max_dist_q"], prm["bw"]), prm["bw"], w, prm["chn_pen_gap"],
+         prm["chn_pen_skip"])
+    ints = lib.ring_offset(0, 1, warps, w)
+    assert ints == 4 * (w + 64)
+    assert lib.ring_offset(rows - 1, warps - 1, warps, w) + ints == rows * warps * ints
+    scratch = rng.integers(-2**31, 2**31, rows * warps * ints).astype(np.int32)
+    f = np.full((b, n), 12345, np.int32)
+    p = np.full((b, n), 12345, np.int32)
+    for r, warp in [(r, k) for r in range(b) for k in rng.permutation(warps)]:
+        ring = scratch[lib.ring_offset(r % rows, int(warp), warps, w):]
+        n_a = min(max(int(n_anchors[r]), 0), n)
+        lib.fill_share(_p(key[r]), _p(tpos[r]), _p(qpos[r]), n_a, int(warp),
+                       warps, *c, _p(f[r]), _p(p[r]), _p(ring))
+    for r in range(b):
+        n_a = min(max(int(n_anchors[r]), 0), n)
+        f[r, n_a:] = 0
+        p[r, n_a:] = -1
+    return f, p
+
+
+@pytest.mark.parametrize("preset", sorted(PRESETS))
+@pytest.mark.parametrize("w,inputs", [
+    (MAX_ITER_CAP + 1, "sparse"), (MAX_ITER_CAP + 1, "dense"),
+    ("row", "dense"), ("3row", "dense")])
+def test_global_ring_fill_matches_plain(harness, preset, w, inputs):
+    """The kernel's global-ring path past the shared-memory cap, as g++
+    builds its ring layout and warp shares from chain_fill.cuh: 16 warps a
+    read (and 3, shares that split segments), two rows a launch, rings in
+    one scratch buffer, bit for bit against the plain fill at W =
+    MAX_ITER_CAP + 1 and at a W as long as the row or three times it, on
+    rows whose every predecessor is in band and whose chains step 300
+    anchors back (there W decides the result: it differs from W = 200's)."""
+    prm = PRESETS[preset]
+    a = (sparse_anchors(41, 3, 600) if inputs == "sparse"
+         else wide_band_anchors(43, 3, 1200, prm["max_dist_q"], 300))
+    w = {"row": a[0].shape[1], "3row": 3 * a[0].shape[1]}.get(w, w)
+    f_t, p_t = chain_fill_batch(*_torch(*a), **prm, max_iter=w)
+    for warps, seed in ((16, 1), (3, 2)):
+        f, p = share_fill(harness, *a, prm, w, warps, rows=2, seed=seed)
+        np.testing.assert_array_equal(f, f_t.numpy())
+        np.testing.assert_array_equal(p, p_t.numpy())
+    if inputs == "dense":
+        f_200, _ = chain_fill_batch(*_torch(*a), **prm, max_iter=200)
+        assert (f_t > f_200).any()
+
+
+@pytest.mark.parametrize("w", [MAX_ITER_CAP + 1, 20000, 32704, 10**6])
+def test_global_ring_plan_fits_its_budget(harness, w):
+    """The global-ring path runs 16 warps a read and the whole batch in one
+    launch while the scratch fits its budget (at 2 GiB, W = 20000 takes
+    1.3 GB for 256 rows); past it, fewer rows a launch, then fewer warps,
+    never less than one of each."""
+    ring = 16 * (w + 64)
+    budget = 2 << 30
+    warps = harness.global_warps(w, 16, budget)
+    rows = harness.global_rows(256, w, warps, budget)
+    assert 1 <= warps <= 16 and 1 <= rows <= 256
+    assert rows * warps * ring <= budget or (rows == 1 and warps == 1)
+    assert warps == 16 or (warps + 1) * ring > budget
+    assert rows == 256 or (rows + 1) * warps * ring > budget
+    if w <= 32704:
+        assert (warps, rows) == (16, 256)
+    assert harness.global_warps(w, 16, ring - 1) == 1
+    assert harness.global_rows(256, w, 16, 0) == 1
