@@ -104,7 +104,17 @@ Phases, each printed as one JSON line and each fatal on failure:
                shared-memory path at W = 14464, the plain fill once, with its
                bound; then the CLI maps the fixture with --max-iterations
                20000 on cuda
-Phases 6-9, 12-15 and 16 (not the *_kernels checks) are the main-path run:
+     pipeline  D1 (host tail, 5 batches) and D2 (device tail, 2 batches)
+               mapped again from the same reads at --pipeline-depth 1, then
+               3: records equal to the main run's (which ran at the default
+               depth, 3); bp/s, wall seconds, the stage sums and the
+               distinct CUDA streams K1 and K2 launched on, per cell and
+               depth (one a batch in flight: more than one at depth 3)
+Every mapping phase runs at the default --pipeline-depth, 3 (batches in
+flight, each on a CUDA stream of its own, chunk tails on a worker pool),
+unless it says otherwise; the fixture's CLI also maps at --batch-reads 2
+with --pipeline-depth 1 and 3, PAF columns 1-12 equal.
+Phases 6-9, 12-15, 16 and pipeline (not the *_kernels checks) are the main-path run:
 each resets the kernels' launch counters just before it and reads them
 just after; every kernel of its path must have launched in it (ava's,
 ava_tails's and dist's: the fill and the backtrack).  Phases 7-9, 14 and 15 need >= 95% of reads mapped at accuracy
@@ -127,6 +137,7 @@ import os
 import re
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -181,17 +192,36 @@ def timed_once(torch, fn):
     return out, s.elapsed_time(e)
 
 
+_SPY_LOCK = threading.Lock()
+
+
 def spy(mod, name, record):
     """Wrap mod.name so that each call first hands (name, the original, its
-    arguments, keyword arguments) to record; returns the original, which
-    the caller puts back."""
+    arguments, keyword arguments) to record, one call at a time (the
+    engine's workers call from several threads); returns the original,
+    which the caller puts back."""
     fn = getattr(mod, name)
 
     def wrapper(*a, **k):
-        record(name, fn, a, k)
+        with _SPY_LOCK:
+            record(name, fn, a, k)
         return fn(*a, **k)
     setattr(mod, name, wrapper)
     return fn
+
+
+def for_default_stream(x):
+    """x (a tensor, or tuples of them) kept past a run for use on the
+    default stream: made on a batch's stream, its memory must not go back
+    to that stream while the default stream may still read it."""
+    import torch
+
+    if isinstance(x, tuple):
+        for t in x:
+            for_default_stream(t)
+    elif isinstance(x, torch.Tensor):
+        x.record_stream(torch.cuda.default_stream(x.device))
+    return x
 
 
 def fill_bound(key, tpos, qpos, n_anchors, prm) -> dict:
@@ -651,7 +681,12 @@ def phase_fixture(d: Path) -> dict:
                   str(d / "ref.fa"), "--device", "cuda"])
         check(rc == 0, f"fixture index build failed ({rc})")
         pafs = {}
-        for run, device in (("cuda", "cuda"), ("cpu", "cpu"), ("cuda_tail", "cuda")):
+        # (run, device, more arguments): the last two map two reads a batch
+        # (three batches) at --pipeline-depth 1 and at the default, 3
+        for run, device, more in (
+                ("cuda", "cuda", []), ("cpu", "cpu", []), ("cuda_tail", "cuda", []),
+                ("cuda_depth1", "cuda", ["--batch-reads", "2", "--pipeline-depth", "1"]),
+                ("cuda_depth3", "cuda", ["--batch-reads", "2"])):
             paf = d / f"{preset}_{run}.paf"
             if run == "cuda_tail":
                 os.environ["RAWHASH_TPU_DEVICE_TAIL"] = "1"
@@ -659,7 +694,7 @@ def phase_fixture(d: Path) -> dict:
             try:
                 rc = cli(["-x", preset, "--max-anchors", "512", str(idx),
                           str(d / "reads.sig.npz"), "--device", device,
-                          "-o", str(paf)])
+                          "-o", str(paf), *more])
             finally:
                 os.environ.pop("RAWHASH_TPU_DEVICE_TAIL", None)
             check(rc == 0, f"fixture mapping ({run}) failed ({rc})")
@@ -674,12 +709,17 @@ def phase_fixture(d: Path) -> dict:
                 diffs.append({"read": name, "cuda": a and a[:12], "cpu": c and c[:12]})
         tail_same = ({n: r[:12] for n, r in rows["cuda_tail"].items()}
                      == {n: r[:12] for n, r in rows["cuda"].items()})
+        cols = {run: [c[:12] for c in pafs[run][0]] for run in pafs}
+        depths_same = cols["cuda_depth1"] == cols["cuda_depth3"] == cols["cuda"]
         emit({"phase": "fixture", "preset": preset,
               "mapped_cuda": len(rows["cuda"]), "mapped_cpu": len(rows["cpu"]),
               "mapped_cuda_device_tail": len(rows["cuda_tail"]),
               "device_tail_equals_host_tail": tail_same,
+              "pipeline_depths_1_3_equal": depths_same,
               "seconds_cuda": pafs["cuda"][1], "seconds_cpu": pafs["cpu"][1],
               "seconds_cuda_device_tail": pafs["cuda_tail"][1],
+              "seconds_cuda_depth1": pafs["cuda_depth1"][1],
+              "seconds_cuda_depth3": pafs["cuda_depth3"][1],
               "differences": diffs})
         check(set(rows["cuda"]) == set(rows["cpu"]), "fixture: mapped sets differ")
         for name, a in rows["cuda"].items():
@@ -690,6 +730,8 @@ def phase_fixture(d: Path) -> dict:
                   f"fixture: PAF column 8 differs by > 20 for {name}")
         check(tail_same, "fixture: the device tail's PAF columns 1-12 differ "
               "from the host tail's on cuda")
+        check(depths_same, "fixture: PAF columns 1-12 at --pipeline-depth 1 and "
+              "3 (two reads a batch) differ from each other or the one-batch run's")
         out[preset] = len(rows["cuda"])
     out.update(fixture_modes(d, cli))
     return out
@@ -753,19 +795,30 @@ def catch_widest(caught, also=None):
     run's widest fill call (copies of its tensors, its keyword arguments) in
     caught["fill"] and its widest device-tail call (its ChunkOut `out`,
     `k_cap` and `p_out`) in caught["tail"]; `also(fill arguments)` sees
-    every fill call.  Returns the originals, which the caller puts back."""
+    every fill call.  caught["streams"] gathers the CUDA streams K1 (the
+    fill) and K2 (the backtrack, launched inside tail_finish) were called
+    on.  Returns the originals, which the caller puts back."""
+    import torch
+
     from rawhash_tpu_torch.map import device_step
     from rawhash_tpu_torch.map import engine as eng_mod
 
+    streams = caught.setdefault("streams", {"chain_fill": set(),
+                                            "chain_backtrack": set()})
+
     def widest_fill(_, fn, a, k):
+        streams["chain_fill"].add(torch.cuda.current_stream(a[0].device).cuda_stream)
         if also is not None:
             also(a)
         if "fill" not in caught or a[0].shape[1] >= caught["fill"][0][0].shape[1]:
-            caught["fill"] = ([t.clone() for t in a], dict(k))
+            caught["fill"] = ([for_default_stream(t.clone()) for t in a], dict(k))
 
     def widest_tail(_, fn, a, k):
-        if "tail" not in caught or a[0].f.shape[1] >= caught["tail"]["out"].f.shape[1]:
-            caught["tail"] = dict(out=a[0], k_cap=k["k_cap"], p_out=k["p_out"])
+        out = a[0]
+        streams["chain_backtrack"].add(torch.cuda.current_stream(out.f.device).cuda_stream)
+        if "tail" not in caught or out.f.shape[1] >= caught["tail"]["out"].f.shape[1]:
+            caught["tail"] = dict(out=for_default_stream(out), k_cap=k["k_cap"],
+                                  p_out=k["p_out"])
 
     return {(device_step, "chain_fill"): spy(device_step, "chain_fill", widest_fill),
             (eng_mod, "tail_finish"): spy(eng_mod, "tail_finish", widest_tail)}
@@ -783,8 +836,8 @@ def phase_deployment(torch, dev, name, genome_len, preset, n_batches,
     through the engine's streaming entry point.  The run's widest fill and
     device-tail calls are kept in `caught` (catch_widest).  `store_sig` keeps the expected
     signal in the index (for DTW); `configure(mopt)` sets the run's mode;
-    `keep` receives the index, the options and the first batch (with its
-    truth) for a later phase."""
+    `keep` receives the index, the options, the first batch (with its
+    truth), every batch, the run's records and its row for later phases."""
     from rawhash_tpu_torch.chain.backtrack import chain_backtrack
     from rawhash_tpu_torch.map import engine as eng_mod
     from rawhash_tpu_torch.synthetic import deployment
@@ -801,7 +854,7 @@ def phase_deployment(torch, dev, name, genome_len, preset, n_batches,
                for i in range(0, len(reads), 256)]
     if keep is not None:
         keep.update(index=index, mopt=copy.deepcopy(mopt), reads=reads[:256],
-                    read_len=read_len)
+                    read_len=read_len, all_reads=reads, batches=batches)
     engine = eng_mod.MappingEngine(index, mopt, device=dev)
     originals = catch_widest(caught)
     torch.cuda.synchronize()
@@ -834,7 +887,11 @@ def phase_deployment(torch, dev, name, genome_len, preset, n_batches,
         hit_overflow=engine.stats["hit_overflow"],
         prev_overflow=engine.stats["prev_overflow"],
         chain_overflow=engine.stats["chain_overflow"],
+        pipeline_depth=engine.pipeline_depth,
+        streams={k: len(v) for k, v in caught["streams"].items()},
     )
+    if keep is not None:
+        keep.update(records=records_of(results), row=row)
     emit({"phase": name, "preset": preset, "genome_len": genome_len, **row})
     check(row["mapped_frac"] >= 0.95, f"{name}: mapped {n_mapped}/{len(reads)}")
     check(row["accuracy"] >= 0.95, f"{name}: accuracy {row['accuracy']:.3f}")
@@ -1063,6 +1120,64 @@ def map_timed(torch, engine, kept) -> tuple:
     results = engine.map_batch([(n, s) for n, s, _, _ in kept["reads"]])
     torch.cuda.synchronize()
     return results, time.perf_counter() - t0
+
+
+def phase_pipeline(torch, dev, kept) -> dict:
+    """D1 (host tail, 5 batches) and D2 (device tail, 2 batches) mapped
+    again from the main run's reads at --pipeline-depth 1, then 3: records
+    equal to the main run's (at 3); per cell and depth, bp/s, wall seconds,
+    the stage sums and the distinct CUDA streams K1 and K2 launched on.  At
+    depth 1 every launch is on one stream; at depth 3 on more than one (one
+    a batch in flight)."""
+    from rawhash_tpu_torch.map.engine import MappingEngine
+
+    out = {}
+    for cell, k in kept.items():
+        main = k["row"]
+        runs = {"main": dict(depth=main["pipeline_depth"], seconds=main["seconds"],
+                             bp_per_s=main["bp_per_s"], streams=main["streams"],
+                             stage_seconds=main["stage_seconds"],
+                             stage_sum=sum(main["stage_seconds"].values()))}
+        for depth in (1, 3):
+            mopt = copy.deepcopy(k["mopt"])
+            mopt.pipeline_depth = depth
+            engine = MappingEngine(k["index"], mopt, device=dev)
+            caught = {}
+            originals = catch_widest(caught)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                results = [r for batch in engine.map_stream(k["batches"]) for r in batch]
+            finally:
+                put_back(originals)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            n_mapped, n_correct, bases = score_mapping(k["all_reads"], results, mopt,
+                                                       k["read_len"])
+            stages = dict(engine.profiler.totals)
+            row = dict(depth=depth, pipeline_depth=engine.pipeline_depth,
+                       seconds=dt, bp_per_s=bases / dt, mapped=n_mapped,
+                       accuracy=n_correct / max(n_mapped, 1),
+                       records_equal_main=records_of(results) == k["records"],
+                       streams={n: len(v) for n, v in caught["streams"].items()},
+                       stage_seconds=stages, stage_sum=sum(stages.values()),
+                       stage_counts=dict(engine.profiler.counts),
+                       device_tail=engine.device_tail,
+                       anchor_regrows=engine.stats["anchor_regrows"])
+            emit({"phase": "pipeline", "cell": cell, **row})
+            check(row["records_equal_main"], f"pipeline {cell}: the records at "
+                  f"depth {depth} differ from the main run's (depth 3)")
+            runs[f"depth{depth}"] = row
+        out[cell] = runs
+        kernels = ("chain_fill", "chain_backtrack") if cell == "d2" else ("chain_fill",)
+        for name in kernels:
+            check(runs["depth1"]["streams"][name] == 1
+                  and runs["depth3"]["streams"][name] > 1
+                  and runs["main"]["streams"][name] > 1,
+                  f"pipeline {cell}: {name} streams at depth 1 / 3 / the main "
+                  f"run: {runs['depth1']['streams'][name]} / "
+                  f"{runs['depth3']['streams'][name]} / {runs['main']['streams'][name]}")
+    return out
 
 
 def dist_references(torch, dev, kept) -> dict:
@@ -1300,7 +1415,7 @@ def main() -> int:
             "d4": (100_000_000, "sensitive", 1, 3000, 4096, 13),
         }
         caught = {c: {} for c in cells}  # each cell's widest fill/tail calls
-        kept = {"d1": {}, "d2": {}}  # their first batches, for the dist phase
+        kept = {"d1": {}, "d2": {}}  # their reads and records: pipeline, dist
         for name, cell in cells.items():
             runs[name] = main_path(
                 name, lambda: phase_deployment(torch, dev, name, *cell,
@@ -1322,6 +1437,9 @@ def main() -> int:
             torch, dev, {c: caught[c].pop("fill") for c in cells})
         caught.clear()
         emit({"phase": "fill_warps_done", "seconds": time.perf_counter() - t0})
+        # D1 and D2 again at --pipeline-depth 1, then 3
+        runs["pipeline"] = main_path(
+            "pipeline", lambda: phase_pipeline(torch, dev, kept), counters)
 
         # the sharded engine in a one-rank NCCL group against the
         # single-device engine on D1's and D2's first batches; the
@@ -1375,7 +1493,7 @@ def main() -> int:
               f"d4: widest backtrack {d4['backtrack_max_width']} <= 32768")
         fill_only = ("d1", "ava_quality", "dtw", "rmq", "bw_long")
         for name, n in (("fixture", runs["fixture"][1]), ("d2", n2), ("d4", n4),
-                        ("dist", runs["dist"][1]),
+                        ("dist", runs["dist"][1]), ("pipeline", runs["pipeline"][1]),
                         ("ava", runs["ava"][1]), ("ava_tails", runs["ava_tails"][1]),
                         *((c, {"chain_fill": runs[c][1]["chain_fill"]}) for c in fill_only)):
             check(all(v > 0 for v in n.values()),
@@ -1448,6 +1566,8 @@ def main() -> int:
               **{f"{c}_bp_per_s": runs[c][0]["bp_per_s"]
                  for c in (*cells, "ava", "dtw", "rmq", "bw_long")},
               "dist_bp_per_s": {c: r["bp_per_s"] for c, r in runs["dist"][0].items()},
+              "pipeline_bp_per_s": {c: {run: r["bp_per_s"] for run, r in p.items()}
+                                    for c, p in runs["pipeline"][0].items()},
               "seconds": time.perf_counter() - t_all})
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

@@ -13,6 +13,7 @@ import hashlib
 import os
 import subprocess
 import sys
+import threading
 
 import numpy as np
 
@@ -21,6 +22,8 @@ from .._build import BUILD_DIR
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _LIB = None
 _TRIED = False
+# the threads of one process that first need the library build it once
+_LOCK = threading.Lock()
 
 
 def _build_lib():
@@ -103,18 +106,19 @@ def _build_lib():
 
 def get_lib():
     global _LIB, _TRIED
-    if not _TRIED:
-        _TRIED = True
-        try:
-            _LIB = _build_lib()
-        except Exception as e:  # no toolchain / build failure -> python path
-            print(
-                f"[rawhash-tpu] native chain tail unavailable ({e}); "
-                "using the numpy fallback",
-                file=sys.stderr,
-            )
-            _LIB = None
-    return _LIB
+    with _LOCK:
+        if not _TRIED:
+            try:
+                _LIB = _build_lib()
+            except Exception as e:  # no toolchain / build failure -> python path
+                print(
+                    f"[rawhash-tpu] native chain tail unavailable ({e}); "
+                    "using the numpy fallback",
+                    file=sys.stderr,
+                )
+                _LIB = None
+            _TRIED = True
+        return _LIB
 
 
 def sketch_seq_native(

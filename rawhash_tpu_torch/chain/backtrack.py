@@ -23,6 +23,7 @@ O(B x K) and O(B x p_out) gathers.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import numpy as np
 import torch
@@ -43,6 +44,8 @@ DEPTH = 16
 PAD_KEY = (INT32_MIN << 32) | 0xFFFFFFFF  # (INT32_MIN, -1)
 
 _FN = None
+# chain_backtrack's counters are added to from every thread that maps a batch
+_COUNT_LOCK = threading.Lock()
 
 
 def _kernel():
@@ -202,8 +205,9 @@ def chain_backtrack(
     order = candidate_order(f, n_anchors, min_sc)
     out = backtrack_launch(f, p, tpos, qpos, order, **prm,
                            depth=launch_depth(order[3]))
-    chain_backtrack.launches += 1
-    chain_backtrack.max_width = max(chain_backtrack.max_width, n)
+    with _COUNT_LOCK:
+        chain_backtrack.launches += 1
+        chain_backtrack.max_width = max(chain_backtrack.max_width, n)
     return out
 
 

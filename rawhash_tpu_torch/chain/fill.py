@@ -14,6 +14,7 @@ W, as the JAX fill does).
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -33,6 +34,8 @@ MAX_ITER_CAP = 232448 // 16 - 64
 GLOBAL_RING_BUDGET = 2 << 30
 
 _FN = {}
+# chain_fill.launches is added to from every thread that maps a batch
+_COUNT_LOCK = threading.Lock()
 
 
 def _kernel(name: str):
@@ -123,7 +126,8 @@ def chain_fill(
                                                  ring.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"chain_fill kernel launch failed: CUDA error {rc}")
-    chain_fill.launches += launches
+    with _COUNT_LOCK:
+        chain_fill.launches += launches
     return f, p
 
 

@@ -69,18 +69,20 @@ class Lookup(NamedTuple):
 
 
 class _Stages:
-    """Wall time per stage into a StageProfiler, synchronising the device at
-    each mark so the time lands on the stage that spent it (no-op without a
-    profiler)."""
+    """Wall time per stage into a StageProfiler, synchronising the current
+    stream at each mark so the time lands on the stage that spent it (no-op
+    without a profiler).  Only the current stream: batches in flight on
+    other streams go on, so with several in flight a stage's time is its
+    batch's, and the stages' sums may pass the wall time."""
 
     def __init__(self, prof, device: torch.device):
         self.prof = prof
-        self.cuda = device.type == "cuda"
+        self.device = device
         self.t = self._now() if prof is not None else 0.0
 
     def _now(self) -> float:
-        if self.cuda:
-            torch.cuda.synchronize()
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
         return time.perf_counter()
 
     def mark(self, name: str) -> None:

@@ -1,8 +1,11 @@
 """Index build or load, then mapping to PAF (port of
-rawhash_tpu/map/pipeline.py::run_pipeline, serial: batches of reads are
-mapped one after another on the calling thread).  Sequence Until stops
+rawhash_tpu/map/pipeline.py::run_pipeline).  A thread reads and batches the
+signal files ahead of the mapping (two batches queued); the engine keeps
+--pipeline-depth batches in flight (map/engine.py) and hands the results
+back in read order, which are written per read.  Sequence Until stops
 reading once its abundance estimates converge (rmap.cpp:708-734);
---out-quantize prints quantized event streams instead of mapping.
+--out-quantize prints quantized event streams instead of mapping.  No
+thread that a run starts outlives it.
 
 A mapping run with --n-shards joins a process group (torchrun's, or a world
 of one) for its duration.  Every rank reads every read and maps each batch
@@ -11,8 +14,11 @@ index dump and the log."""
 
 from __future__ import annotations
 
+import collections
 import os
+import queue
 import sys
+import threading
 import time
 
 from ..config import IndexFlag, MapFlag
@@ -81,6 +87,42 @@ def _batched_reads(paths, batch_size: int, mini_batch_bytes: int,
             batch = []
     if batch:
         yield batch
+
+
+def _prefetch(gen, q: queue.Queue, stop: threading.Event) -> None:
+    """Put each batch of `gen` on q, then None (or the exception that ended
+    it), until stop is set; never blocks past stop."""
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.05)
+                return True
+            except queue.Full:
+                pass
+        return False
+
+    try:
+        for item in gen:
+            if not put(item):
+                return
+        put(None)
+    except Exception as e:  # handed to the mapping thread, which raises it
+        put(e)
+    finally:
+        gen.close()
+
+
+def _prefetched(q: queue.Queue, pending: collections.deque):
+    """The batches the prefetch thread queues, each also appended to
+    `pending` (the batches whose results are still to come)."""
+    while True:
+        item = q.get()
+        if item is None:
+            return
+        if isinstance(item, Exception):
+            raise item
+        pending.append(item)
+        yield item
 
 
 def load_or_build_index(args, iopt, log, main: bool = True):
@@ -168,12 +210,21 @@ def _run(args, iopt, mopt, t0: float, device, main: bool) -> int:
                            mopt.ttest_freq, mopt.tmin_reads)
     out = _output(args) if main else open(os.devnull, "w")
     n_reads = n_mapped = total_samples = 0
+    # reads are batched on a thread, two batches ahead; each result pairs
+    # with its batch in order (pending)
+    q = queue.Queue(maxsize=2)
+    stop = threading.Event()
+    gen = _batched_reads(args.query, mopt.batch_reads, mopt.mini_batch_size,
+                         getattr(args, "io_thread", 1) or 1)
+    reader = threading.Thread(target=_prefetch, args=(gen, q, stop),
+                              name="rawhash-prefetch", daemon=True)
+    reader.start()
+    pending = collections.deque()
+    stream = engine.map_stream(_prefetched(q, pending))
     try:
-        for batch in _batched_reads(args.query, mopt.batch_reads,
-                                    mopt.mini_batch_size,
-                                    getattr(args, "io_thread", 1) or 1):
-            results = engine.map_batch(batch)
-            stop = False
+        for results in stream:
+            batch = pending.popleft()
+            done = False
             for (_, sig), res in zip(batch, results):
                 write_paf([res], index, out)
                 n_reads += 1
@@ -186,17 +237,30 @@ def _run(args, iopt, mopt, t0: float, device, main: bool) -> int:
                                                      mapped[0].frag_len):
                         log("Sequence Until: estimates converged, stopping "
                             f"after {su.nreads} mapped reads")
-                        stop = True
+                        done = True
                         break
             out.flush()
-            if stop:
+            if done:
                 break
     finally:
+        # stop reading, wait for the engine's chunks in flight, then let
+        # the reader see the stop and join it
+        stop.set()
+        stream.close()
+        while True:
+            try:
+                q.get_nowait()
+            except queue.Empty:
+                break
+        reader.join(timeout=30.0)
         if out is not sys.stdout:
             out.close()
 
     dt = time.time() - t0
-    log(f"stage profile: {engine.profiler.summary()}")
+    depth = engine.pipeline_depth
+    overlap = (f" (per batch; {depth} batches in flight overlap, so the stages "
+               "may sum past the wall time)" if depth > 1 else "")
+    log(f"stage profile{overlap}: {engine.profiler.summary()}")
     log(resource_summary(t0))
     log(f"mapped {n_mapped}/{n_reads} reads, {total_samples} samples in "
         f"{dt:.2f}s ({total_samples/max(dt,1e-9):.0f} samples/s)")

@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import resource
 import sys
+import threading
 import time
 from collections import defaultdict
 from contextlib import contextmanager
@@ -28,11 +29,13 @@ def peakrss_bytes() -> int:
 
 class StageProfiler:
     """Accumulates wall time per pipeline stage (the PROFILERH equivalent:
-    file read / signal / sketch / seed / chain / map)."""
+    file read / signal / sketch / seed / chain / map).  Threads may add at
+    once: each addition holds `lock` (its own if none is given)."""
 
-    def __init__(self):
+    def __init__(self, lock=None):
         self.totals = defaultdict(float)
         self.counts = defaultdict(int)
+        self._lock = lock if lock is not None else threading.Lock()
 
     @contextmanager
     def stage(self, name: str):
@@ -40,12 +43,12 @@ class StageProfiler:
         try:
             yield
         finally:
-            self.totals[name] += time.perf_counter() - t0
-            self.counts[name] += 1
+            self.add(name, time.perf_counter() - t0)
 
     def add(self, name: str, seconds: float) -> None:
-        self.totals[name] += seconds
-        self.counts[name] += 1
+        with self._lock:
+            self.totals[name] += seconds
+            self.counts[name] += 1
 
     def summary(self) -> str:
         parts = [

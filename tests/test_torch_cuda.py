@@ -275,3 +275,47 @@ def test_dtw_banded_batch_on_the_card_matches_cpu(cuda_device):
     got = dtw_banded_batch_host(pairs, radii, device=cuda_device)
     want = dtw_banded_batch_host(pairs, radii, device="cpu")
     np.testing.assert_allclose(got, want, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tail", ["host", "device"])
+def test_pipeline_depth_3_on_the_card_matches_depth_1(cuda_device, monkeypatch, tail):
+    """Four batches of four viral reads at --pipeline-depth 3 on the card:
+    the records of depth 1; at depth 1 every K1 launch is on the default
+    stream, at depth 3 on more than one stream of its own (one a batch in
+    flight), never the default one."""
+    from rawhash_tpu_torch.map import device_step
+    from rawhash_tpu_torch.map.engine import MappingEngine
+    from rawhash_tpu_torch.synthetic import deployment
+
+    if tail == "device":
+        monkeypatch.setenv("RAWHASH_TPU_DEVICE_TAIL", "1")
+    else:
+        monkeypatch.delenv("RAWHASH_TPU_DEVICE_TAIL", raising=False)
+    index, mopt, reads = deployment(20_000, "viral", 16, 900, 1024, 17)
+    batches = [[(n, s) for n, s, _, _ in reads[i:i + 4]] for i in range(0, 16, 4)]
+    streams = []
+    fill = device_step.chain_fill
+
+    def spy(*a, **k):
+        streams.append(torch.cuda.current_stream(a[0].device).cuda_stream)
+        return fill(*a, **k)
+    monkeypatch.setattr(device_step, "chain_fill", spy)
+    recs, used = {}, {}
+    for depth in (1, 3):
+        mopt.pipeline_depth = depth
+        streams.clear()
+        backtracks = chain_backtrack.launches
+        engine = MappingEngine(index, mopt, device=cuda_device)
+        recs[depth] = [
+            (r.name, [(m.read_length, m.ref_id, m.read_start, m.read_end,
+                       m.frag_start, m.frag_len, m.mapq, m.rev, m.mapped)
+                      for m in r.records])
+            for results in engine.map_stream(batches) for r in results]
+        used[depth] = set(streams)
+        assert (chain_backtrack.launches > backtracks) == (tail == "device")
+    default = torch.cuda.default_stream(cuda_device).cuda_stream
+    assert recs[3] == recs[1]
+    assert sum(m[-1] for _, rs in recs[1] for m in rs) >= 8
+    assert used[1] == {default}
+    assert len(used[3]) > 1 and default not in used[3]

@@ -236,7 +236,7 @@ def test_device_tail_reruns_only_what_grew(monkeypatch, case):
     want = _snap(ref.map_batch(batch))
 
     chunks, tails = [], []  # a_cap of each step, per chunk; tail_finish calls
-    for name, log in (("_run_chunk", None), ("chunk_step", "a_cap"),
+    for name, log in (("_submit_chunk", None), ("chunk_step", "a_cap"),
                       ("tail_finish", "k_cap")):
         fn = getattr(eng_mod, name)
 

@@ -7,7 +7,8 @@ and reads that this process made with the JAX package, check the sharded
 seed merge against the unsharded lookup and expansion, and map
 tests/test_dist.py's multi-chunk workload (12 kb genome, 12 reads, noise
 prefixes) with --n-shards in {1, 2, 4}, all-vs-all, the squeezed growth
-path and the forced device tail; each rank writes what it got.  This
+path, the forced device tail and three batches at --pipeline-depth 3;
+each rank writes what it got.  This
 process computes the JAX single-device engine's records (and the JAX
 sharded engine's shard_hits) and compares, PAF columns 1-12 and the tags
 but the wall-clock mt:f.  Every world has a deadline: past it the workers
@@ -20,6 +21,7 @@ import os
 import socket
 import subprocess
 import sys
+import threading
 import time
 import warnings
 from pathlib import Path
@@ -46,7 +48,7 @@ WORLDS = (2, 4)
 # (name, n_shards, what the run changes): the world of 4 maps every
 # scenario, the world of 2 the plain mapping at the shard counts it has
 SCENARIOS = {
-    2: [("map", 1), ("map", 2)],
+    2: [("map", 1), ("map", 2), ("pipeline", 2)],
     4: [("map", 1), ("map", 2), ("map", 4), ("ava", 4), ("growth", 2),
         ("device_tail", 1), ("device_tail", 4)],
 }
@@ -155,17 +157,38 @@ def _run_scenario(d, name, n_shards):
     elif name == "growth":
         mopt.max_anchors_per_read = 128
         mopt.max_anchor_cap = 1 << 14
+    elif name == "pipeline":
+        mopt.pipeline_depth = 3
     if name == "device_tail":
         os.environ["RAWHASH_TPU_DEVICE_TAIL"] = "1"
     try:
         eng = MappingEngine(index, mopt, device="cpu")
     finally:
         os.environ.pop("RAWHASH_TPU_DEVICE_TAIL", None)
-    records = _records(eng.map_batch(reads))
+    if name == "pipeline":
+        # three batches of four through map_stream; the threads that run
+        # each chunk's part after the step
+        from rawhash_tpu_torch.map import engine as eng_mod
+
+        threads, process = set(), eng_mod._process_chunk
+
+        def spy(*a):
+            threads.add(threading.current_thread().name)
+            return process(*a)
+        eng_mod._process_chunk = spy
+        try:
+            results = [r for rs in eng.map_stream(
+                [reads[i:i + 4] for i in range(0, len(reads), 4)]) for r in rs]
+        finally:
+            eng_mod._process_chunk = process
+    else:
+        results, threads = eng.map_batch(reads), set()
+    records = _records(results)
     stats = {k: (v.tolist() if isinstance(v, np.ndarray) else v)
              for k, v in eng.stats.items()}
     return dict(records=records, stats=stats, n_shards=eng.dist.n_shards,
-                device_tail=eng.device_tail)
+                device_tail=eng.device_tail, pipeline_depth=eng.pipeline_depth,
+                threads=sorted(threads))
 
 
 def worker(rank: int, world: int, port: int, d: Path) -> int:
@@ -351,6 +374,17 @@ def test_sharded_engine_paf_matches_jax(worlds, world, n_shards):
     assert any(rec[8] for rec in recs), "nothing mapped"
     assert any("ci:i:3" in rec[9] for rec in recs)  # carried anchors in play
     assert not run["device_tail"]
+
+
+def test_sharded_pipeline_depth_3_matches_jax(worlds):
+    """--pipeline-depth 3 in a world of 2 (three batches): every chunk runs
+    on each rank's calling thread, so the collectives keep one order; the
+    run finishes and gives the JAX single-device engine's records."""
+    got, ref, _ = worlds
+    run = got[2][0]["pipeline_2"]
+    assert run["pipeline_depth"] == 1 and run["threads"] == ["MainThread"]
+    assert run["records"] == ref["map"]["records"]
+    assert run["stats"]["reads"] == len(ref["map"]["records"])
 
 
 def test_sharded_all_vs_all_matches_jax(worlds):
