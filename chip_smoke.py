@@ -23,15 +23,21 @@ Phases, each printed as one JSON line and each fatal on failure:
                256 x 16384 the kernel at each staging depth, checked and
                timed in turns
   4. loops     time the plain stages' stepped loops (_gen_peaks, _diff_filter)
-  5. k4        the fill-loop probe (K1's loop skeleton): kernel vs the plain
-               probe bit for bit on a random start at 1000 iterations
-               (64 x 256 at k_ops 2, 20, 60; 200 x 256 at 20), kernel timed
-               (median of 7) and the plain probe once; the kernel against
-               the closed form from INT32_MIN at 100000 iterations; the
-               probe's entry point run with its launch counter set to 0
-               just before and read just after; 200 x 256 (K1's W) timed at
-               100000 iterations; the integer max instructions in the compiled
-               chain at k_ops 2, 20, 60 must grow with k_ops
+  5. k4        the fill-loop probe (a serial ring's floor): the card's
+               latencies (a dependent VIADDMNMX, REDUX, 5-round shuffle max;
+               the int32 rate on every SM); kernel vs the plain probe bit
+               for bit on a random start at 1000 iterations, W in {1, 33,
+               64, 200, 256} (ring in registers) and {257, 4096} (shared
+               memory) x 256 at k_ops 2, 7 (runtime k_ops), 20, 60, kernel
+               timed (median of 7) and the plain probe once; the kernel
+               against the closed form from INT32_MIN at 100000
+               iterations; the probe's entry point run with its launch
+               counter set to 0 just before and read just after; 200 x 256
+               (K1's W) timed at 100000 iterations; each beside its bound
+               (int32 rate and critical path); in the SASS of every kernel
+               instance the integer max count >= k_ops x SPL and growing
+               with k_ops, REDUX present, and in the register form no
+               LDL/STL or SHFL
   6. fixture   the CLI (`python -m rawhash_tpu_torch`) on a small fixture,
                --device cuda vs --device cpu: same mapped reads, same PAF
                columns 1, 5 and 6, column 8 within 20; and on cuda with
@@ -122,7 +128,8 @@ ava_tails's and dist's: the fill and the backtrack).  Phases 7-9, 14 and 15 need
 interval +/- 200).
 The line before the card's line lists every kernel with its launches, error
 and times beside its bound (rawhash_tpu_torch/profiling/bounds.py: bytes,
-fp32, int32 and conversions each at the H100's own rate, the largest time);
+fp32, int32 and conversions each at the H100's own rate, and for K4 its
+critical path at the card's measured latencies, the largest time);
 the last line is {"ok": true, "device": ...}.
 Needs a CUDA device; exits non-zero without one.
 """
@@ -147,7 +154,8 @@ ROOT = Path(__file__).resolve().parent
 
 
 def bound_by(row) -> str:
-    """The kernels line's bound_by: "bytes" or "operations"."""
+    """The kernels line's bound_by: "bytes" or "operations" (a class of
+    operations, or a critical path of dependent ones)."""
     return "bytes" if row["bound_class"] == "bytes" else "operations"
 
 
@@ -611,26 +619,33 @@ def phase_loops(torch, dev) -> dict:
 
 
 def phase_k4(torch, dev) -> dict:
-    """The fill-loop probe (K4): kernel vs plain probe, the closed form, the
-    probe's entry point with its launch counter, and the SASS check."""
+    """The fill-loop probe (K4): the card's latencies, kernel vs plain probe
+    on both ring forms at fixed and runtime k_ops, the closed form, the
+    probe's entry point with its launch counter, us per iteration beside
+    both bounds, and the SASS check of every kernel instance."""
     from rawhash_tpu_torch.profiling import fill_loop_overhead as flo
 
+    lat = flo.measure_latencies()
+    check(all(v > 0 for v in lat.values()), f"k4: a latency did not measure: {lat}")
     n_check, n_full = 1000, 100_000
     rng = np.random.default_rng(5)
     checks = []
-    for w, k_ops in ((64, 2), (64, 20), (64, 60), (200, 20)):
-        x = torch.from_numpy(
-            rng.integers(-2**20, 2**20, (w, flo.B)).astype(np.int32)).to(dev)
-        got = flo.fill_loop_probe(x, n_check, k_ops)  # also the warm-up
-        want, plain_ms = timed_once(
-            torch, lambda: flo.fill_loop_probe_plain(x, n_check, k_ops))
-        err = int((got.long() - want.long()).abs().max())
-        check(torch.equal(got, want), f"k4 {w}x{flo.B} k_ops={k_ops}: kernel "
-              f"disagrees with the plain probe (max abs err {err})")
-        ms = cuda_ms(torch, lambda: flo.fill_loop_probe(x, n_check, k_ops), 7)
-        checks.append(dict(w=w, b=flo.B, n_iter=n_check, k_ops=k_ops,
-                           max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                           **flo.probe_bound(n_check, k_ops, w)))
+    # registers up to W = 256 (SPL 1, 2, 7, 8), shared memory past it;
+    # k_ops 7 takes the runtime-k_ops instances
+    for w in (1, 33, 64, 200, 256, 257, 4096):
+        for k_ops in (2, 7, 20, 60):
+            x = torch.from_numpy(
+                rng.integers(-2**20, 2**20, (w, flo.B)).astype(np.int32)).to(dev)
+            got = flo.fill_loop_probe(x, n_check, k_ops)  # also the warm-up
+            want, plain_ms = timed_once(
+                torch, lambda: flo.fill_loop_probe_plain(x, n_check, k_ops))
+            err = int((got.long() - want.long()).abs().max())
+            check(torch.equal(got, want), f"k4 {w}x{flo.B} k_ops={k_ops}: kernel "
+                  f"disagrees with the plain probe (max abs err {err})")
+            ms = cuda_ms(torch, lambda: flo.fill_loop_probe(x, n_check, k_ops), 7)
+            checks.append(dict(w=w, b=flo.B, n_iter=n_check, k_ops=k_ops,
+                               max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                               **flo.probe_bound(n_check, k_ops, w, lat=lat)))
     for k_ops in flo.K_OPS:
         x = torch.full((flo.W, flo.B), flo.INT32_MIN, dtype=torch.int32, device=dev)
         got = flo.fill_loop_probe(x, n_full, k_ops)
@@ -655,16 +670,34 @@ def phase_k4(torch, dev) -> dict:
             per_iter.append(dict(w=flo.W, b=flo.B, n_iter=n_full, k_ops=k_ops,
                                  us_per_iter=float(m.group(2)),
                                  ms=float(m.group(3)) * 1e3,
-                                 **flo.probe_bound(n_full, k_ops)))
+                                 **flo.probe_bound(n_full, k_ops, lat=lat)))
     check(len(per_iter) == len(flo.K_OPS), f"k4: unexpected output {lines}")
-    per_iter += [flo.time_probe(n_full, k_ops, w=200) for k_ops in flo.K_OPS]
+    per_iter += [flo.time_probe(n_full, k_ops, w=200, lat=lat) for k_ops in flo.K_OPS]
 
-    sass = flo.sass_max_counts()
-    fixed = [sass[f"k_ops={k}"] for k in flo.K_OPS]
-    check(fixed == sorted(set(fixed)),
-          f"k4: the compiled chain's max count does not grow with k_ops: {sass}")
-    out = dict(checks=checks, per_iter=per_iter, entry_point_output=lines,
-               launches=launches, sass_max=sass)
+    # every instance: one REDUX an iteration (nvcc may unroll the iteration
+    # loop: a REDUX per copy), and the chain unfolded (at least k_ops x SPL
+    # maxes a REDUX, more as k_ops grows); the register form without local
+    # memory or shuffles
+    sass = flo.sass_counts()
+    regs = {k: v for k, v in sass.items() if k.startswith("regs<")}
+    smem = {k: v for k, v in sass.items() if k.startswith("smem<")}
+    check(len(regs) == 8 * (len(flo.K_OPS) + 1) and len(smem) == len(flo.K_OPS) + 1,
+          f"k4: unexpected kernel instances {sorted(sass)}")
+    check(all(v["redux"] >= 1 for v in (*regs.values(), *smem.values())),
+          f"k4: an instance lacks REDUX: {sass}")
+    for spl in (*range(1, 9), 0):
+        names = [f"regs<{spl},{k}>" if spl else f"smem<{k}>" for k in flo.K_OPS]
+        per = [sass[n]["max"] / sass[n]["redux"] for n in names]
+        check(per == sorted(set(per))
+              and all(c >= k * max(spl, 1) for c, k in zip(per, flo.K_OPS)),
+              f"k4: the chain is folded: maxes a REDUX {dict(zip(names, per))}")
+    check(all(v["local"] == 0 and v["shfl"] == 0 for v in regs.values()),
+          f"k4: the register form uses local memory or shuffles: {regs}")
+    check(sass["lat_chain"]["max"] >= flo.LAT_K
+          and sass["lat_redux"]["redux"] >= flo.LAT_REDUX,
+          f"k4: the latency kernels are folded: {sass}")
+    out = dict(latencies=lat, checks=checks, per_iter=per_iter,
+               entry_point_output=lines, launches=launches, sass=sass)
     emit({"phase": "k4", **out})
     return out
 

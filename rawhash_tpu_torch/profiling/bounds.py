@@ -13,7 +13,10 @@ of the times:
   taken at that rate too);
 - over 132 SMs, at the SM clock nvidia-smi reports as clocks.max.sm, or at
   the data sheet's 1980 MHz boost where that cannot be read (`sm_clock`
-  says which).
+  says which);
+- for a latency-bound kernel, its critical path: the cycles of its longest
+  chain of dependent instructions, at latencies the card measured
+  (`fill_loop_overhead.measure_latencies`), at the same clock.
 
 The work is counted from the inputs of the call, not the most they could
 need: `fill_work` counts the (anchor, predecessor) pairs K1's function
@@ -50,16 +53,21 @@ def sm_clock() -> tuple[float, str]:
         return BOOST_HZ, "data sheet boost clock"
 
 
-def bound(nbytes: float, **ops: float) -> dict:
-    """The largest of the bytes over the memory rate and each class of
-    operations (`fp32=`, `int32=`, `cvt=` counts) over its own rate:
-    {bound_ms, bound_class ("bytes" or the class of operations)}."""
+def bound(nbytes: float, critical_path: float | None = None, **ops: float) -> dict:
+    """The largest of the bytes over the memory rate, each class of
+    operations (`fp32=`, `int32=`, `cvt=` counts) over its own rate and,
+    where given, the critical path: the cycles of the work's longest chain
+    of dependent instructions (at latencies measured on the card) at the SM
+    clock.  {bound_ms, bound_class ("bytes", "critical_path" or the class of
+    operations), class_ms (each class's time)}."""
     hz = sm_clock()[0]
     ms = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3}
     for cls, n in ops.items():
         ms[cls] = n / (SMS * PER_SM_PER_CLOCK[cls] * hz) * 1e3
+    if critical_path is not None:
+        ms["critical_path"] = critical_path / hz * 1e3
     by = max(ms, key=ms.get)
-    return {"bound_ms": ms[by], "bound_class": by}
+    return {"bound_ms": ms[by], "bound_class": by, "class_ms": ms}
 
 
 # K1's instructions for one (anchor, predecessor) pair, by how far rh_slot

@@ -30,16 +30,16 @@ import torch
 OTHER = "rawhash_tpu_torch_other"
 
 
-def load_other(root: Path):
-    """The other checkout's chain/backtrack.py module, its package loaded
-    as OTHER."""
+def load_other(root: Path, module: str = "chain.backtrack"):
+    """The other checkout's `module` (chain/backtrack.py by default), its
+    package loaded as OTHER."""
     init = root / "rawhash_tpu_torch" / "__init__.py"
     spec = importlib.util.spec_from_file_location(
         OTHER, init, submodule_search_locations=[str(init.parent)])
     pkg = importlib.util.module_from_spec(spec)
     sys.modules[OTHER] = pkg
     spec.loader.exec_module(pkg)
-    return importlib.import_module(f"{OTHER}.chain.backtrack")
+    return importlib.import_module(f"{OTHER}.{module}")
 
 
 def cuda_ms(fn, reps: int = 5) -> float:

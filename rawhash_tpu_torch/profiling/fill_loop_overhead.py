@@ -1,27 +1,32 @@
-"""Fill-loop-overhead probe: K1's loop skeleton, timed on the card.
+"""Fill-loop-overhead probe: the cost of one serial ring step on the card.
 
 Port of tools/profiling/fill_loop_overhead.py (the Pallas probe in its
-`make`).  The first port of the fill K1 ran one warp per read through a
-serial chain of anchor steps over a W-slot ring in shared memory, scoring
-all W slots a step with two 64-bit shuffle maxima; csrc/chain_fill.cu no
-longer does (it steps segments through their in-band suffixes), but the
-probe still measures that old skeleton.  It replaces each step's scoring
-by k_ops integer max steps per slot: if the time per iteration stays flat
-as k_ops grows, the loop, the shuffles and the carry dominate; if it grows
-with k_ops, the operations themselves do.
+`make`).  Each iteration chains k_ops integer max steps on every slot of a
+W-slot ring per column, takes the column max and writes it to slot i % W:
+a serial ring of dependent steps, as K1's anchor step and the backtrack's
+walk step are.  The kernel (csrc/fill_loop_probe.cu) runs it the way this
+card runs a serial ring best (the ring in registers up to W = 256, one
+REDUX for the column max, the chain unrolled for the entry point's k_ops),
+so its time per iteration is the floor those kernels' step times are
+compared to; its bound is the critical path of k_ops dependent VIADDMNMX
+and the column max an iteration, at latencies `measure_latencies` takes on
+the card.  (Its first version timed K1's first skeleton instead: a
+shared-memory ring and a 5-round shuffle max, which no kernel runs now.)
 
-`fill_loop_probe` runs csrc/fill_loop_probe.cu on CUDA tensors or raises;
-on CPU tensors it runs `fill_loop_probe_plain`, the loop of the JAX body in
-PyTorch.  The TPU probe ignores its input and starts from uninitialised
-scratch; here the ring starts from x and the carry from INT32_MIN, so
-x = full(INT32_MIN) gives what the Pallas interpreter gives.
+`fill_loop_probe` runs the kernel on CUDA tensors or raises; on CPU tensors
+it runs `fill_loop_probe_plain`, the loop of the JAX body in PyTorch.  The
+TPU probe ignores its input and starts from uninitialised scratch; here the
+ring starts from x and the carry from INT32_MIN, so x = full(INT32_MIN)
+gives what the Pallas interpreter gives.
 
     python -m rawhash_tpu_torch.profiling.fill_loop_overhead [iters]
 
-prints the card's name and power limit, then `k_ops=K: X us/iter (Y s
-total)` for K in 2, 20, 60 at W x B = 64 x 256 and `iters` iterations
-(default 100000), each the best of 3 CUDA-event runs after a warm-up, with
-its bound.  It needs an NVIDIA GPU and exits non-zero without one.
+prints the card's name and power limit, the card's latencies
+(`measure_latencies`), then `k_ops=K: X us/iter (Y s total)` for K in 2,
+20, 60 at W x B = 64 x 256 and `iters` iterations (default 100000), each
+the best of 3 CUDA-event runs after a warm-up, with its bound, the
+critical path's and the int32 rate's times.  It needs an NVIDIA GPU and
+exits non-zero without one.
 """
 
 from __future__ import annotations
@@ -30,12 +35,11 @@ import ctypes
 import re
 import subprocess
 import sys
-import tempfile
 from pathlib import Path
 
 import torch
 
-from .._build import CSRC, _run, build, load_library, nvcc_path
+from .._build import build, load_library, nvcc_path
 from .bounds import bound
 
 W, B = 64, 256
@@ -105,16 +109,73 @@ def fill_loop_probe(x: torch.Tensor, n_iter: int, k_ops: int) -> torch.Tensor:
 fill_loop_probe.launches = 0
 
 
-def probe_bound(n_iter: int, k_ops: int, w: int = W, b: int = B) -> dict:
+# The latency kernels' counts (csrc/fill_loop_probe.cu: kLatK, kLatRedux,
+# kRateThreads; lat_rate runs 4 chains a thread)
+LAT_K, LAT_REDUX, RATE_THREADS, RATE_CHAINS = 60, 16, 1024, 4
+
+
+def measure_latencies(n: int = 1024, n_rate: int = 64) -> dict:
+    """The card's latencies in SM clock cycles, by clock64 in one warp
+    (csrc/fill_loop_probe.cu: rh_probe_latencies), each from runs of n and
+    2n iterations so that the fixed cost cancels: `viaddmnmx`, a dependent
+    step r = max(r + 1, acc); `redux`, a dependent __reduce_max_sync;
+    `shfl_colmax`, a column max of 5 __shfl_xor_sync rounds and maxes.
+    `int32_per_sm_per_clock`: the steps every SM retires a clock with two
+    blocks of 1024 threads, 4 independent chains a thread (the median over
+    the SMs; `sms` of them ran blocks).  Needs a card."""
+    fn = load_library().rh_probe_latencies
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    dev = torch.device("cuda")
+    blocks = 2 * torch.cuda.get_device_properties(dev).multi_processor_count
+    inp = torch.arange(-16, 17, dtype=torch.int32, device=dev)
+    out = torch.empty(blocks * RATE_THREADS, dtype=torch.int32, device=dev)
+    cyc = torch.zeros(6 + 3 * blocks, dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        rc = fn(inp.data_ptr(), out.data_ptr(), cyc.data_ptr(), n, n_rate, blocks,
+                torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"rh_probe_latencies launch failed: CUDA error {rc}")
+    c = cyc.tolist()
+    spans = {}  # SM -> (first clock, last clock, blocks)
+    for k in range(blocks):
+        sm, t0, t1 = c[6 + 3 * k: 9 + 3 * k]
+        lo, hi, nb = spans.get(sm, (t0, t1, 0))
+        spans[sm] = (min(lo, t0), max(hi, t1), nb + 1)
+    per_block = RATE_THREADS * RATE_CHAINS * LAT_K * n_rate
+    rates = sorted(nb * per_block / (hi - lo) for lo, hi, nb in spans.values())
+    return {"viaddmnmx": (c[1] - c[0]) / (n * LAT_K),
+            "redux": (c[3] - c[2]) / (n * LAT_REDUX),
+            "shfl_colmax": (c[5] - c[4]) / n,
+            "int32_per_sm_per_clock": rates[len(rates) // 2],
+            "sms": len(spans)}
+
+
+def probe_critical_path(n_iter: int, k_ops: int, w: int, lat: dict) -> float:
+    """Cycles of the probe's chain of dependent instructions, k_ops kept
+    unfolded: every iteration needs the last one's column max, so n_iter x
+    (k_ops dependent steps + the column max).  The column max is a max over
+    the SPL = ceil(W/32) slots a lane holds, ceil(log2 SPL) deep (a plain
+    max priced at the step's latency), then a REDUX across the lanes."""
+    spl = -(-w // 32)
+    depth = (spl - 1).bit_length()
+    return n_iter * ((k_ops + depth) * lat["viaddmnmx"] + lat["redux"])
+
+
+def probe_bound(n_iter: int, k_ops: int, w: int = W, b: int = B,
+                lat: dict | None = None) -> dict:
     """The probe's bound: x read and out written once (8 W B bytes), and
     W B (k_ops + 1) int32 instructions per iteration: per slot k_ops adds
     each fused with its max (Hopper's VIADDMNMX, as the kernel compiles) and
-    the column max.  The shuffles and the slot write are left out."""
-    return bound(8.0 * w * b, int32=float(w * b * (k_ops + 1) * n_iter))
+    the column max; with the card's latencies (`measure_latencies`), also
+    its critical path (`probe_critical_path`)."""
+    return bound(8.0 * w * b, int32=float(w * b * (k_ops + 1) * n_iter),
+                 critical_path=None if lat is None else
+                 probe_critical_path(n_iter, k_ops, w, lat))
 
 
 def time_probe(n_iter: int, k_ops: int, w: int = W, b: int = B,
-               reps: int = 3) -> dict:
+               reps: int = 3, lat: dict | None = None) -> dict:
     """Best of `reps` CUDA-event runs of the kernel from INT32_MIN, after a
     warm-up, with its bound."""
     x = torch.full((w, b), INT32_MIN, dtype=torch.int32, device="cuda")
@@ -131,40 +192,40 @@ def time_probe(n_iter: int, k_ops: int, w: int = W, b: int = B,
         best = min(best, s.elapsed_time(e))
     return dict(w=w, b=b, n_iter=n_iter, k_ops=k_ops, ms=best,
                 us_per_iter=best * 1e3 / max(n_iter, 1),
-                **probe_bound(n_iter, k_ops, w, b))
+                **probe_bound(n_iter, k_ops, w, b, lat))
 
 
+# the kernel instances (csrc/fill_loop_probe.cu, mangled): probe_regs<SPL,
+# K> and probe_smem<K>, K = -1 for the k_ops read at run time
+INSTANCE_RE = re.compile(r"(probe_regs|probe_smem)I((?:Li[n0-9]+E)+)E")
 # integer max instructions of sm_90 SASS, the add-fused one (VIADDMNMX) included
 MAX_RE = re.compile(r"\bV?I(?:ADD)?MNMX3?\b")
+SASS_RES = {"max": MAX_RE, "redux": re.compile(r"\bREDUX\b"),
+            "shfl": re.compile(r"\bSHFL\b"), "local": re.compile(r"\b(?:LDL|STL)\b")}
 
 
-def sass_max_counts() -> dict:
-    """Integer max instructions in the compiler's output, to show the k_ops
-    chain is not folded: in the probe kernel of the built library, and in
-    the chain alone compiled with k_ops fixed at each of K_OPS (the count
-    must grow with k_ops).  Needs nvcc and cuobjdump beside it."""
-    bin_dir = Path(nvcc_path()).parent
+def sass_counts() -> dict:
+    """Per kernel instance of the built library ("regs<SPL,K>",
+    "smem<K>", K = -1 for the runtime k_ops) and per latency kernel
+    ("lat_chain", ...): its integer max instructions, REDUX, SHFL and
+    local-memory loads and stores (LDL/STL) in the SASS.  Needs cuobjdump
+    beside nvcc."""
     dump = subprocess.run(
-        [str(bin_dir / "cuobjdump"), "-sass", str(build())],
+        [str(Path(nvcc_path()).parent / "cuobjdump"), "-sass", str(build())],
         capture_output=True, text=True, check=True, timeout=300,
     ).stdout
-    funcs = re.split(r"\n\s*Function : ", dump)
-    probe = next(f for f in funcs if "fill_loop_probe" in f.split("\n", 1)[0])
-    counts = {"kernel": len(MAX_RE.findall(probe))}
-    src = ("#include \"fill_loop_probe.cuh\"\n"
-           "__global__ void chain(int* r, int acc) {\n"
-           "  r[threadIdx.x] = rh_probe_chain(r[threadIdx.x], acc, K_OPS);\n}\n")
-    with tempfile.TemporaryDirectory() as d:
-        (Path(d) / "chain.cu").write_text(src)
-        _run([[nvcc_path(), "-arch=sm_90a", "-std=c++17", "-O3", "--fmad=false",
-               f"-DK_OPS={k}", f"-I{CSRC}", "-cubin",
-               "-o", f"{d}/chain{k}.cubin", f"{d}/chain.cu"] for k in K_OPS])
-        for k in K_OPS:
-            sass = subprocess.run(
-                [str(bin_dir / "cuobjdump"), "-sass", f"{d}/chain{k}.cubin"],
-                capture_output=True, text=True, check=True, timeout=300,
-            ).stdout
-            counts[f"k_ops={k}"] = len(MAX_RE.findall(sass))
+    counts = {}
+    for func in re.split(r"\n\s*Function : ", dump)[1:]:
+        name = func.split("\n", 1)[0]
+        m = INSTANCE_RE.search(name)
+        if m:
+            args = [int(a.replace("n", "-")) for a in re.findall(r"Li([n0-9]+)E", m.group(2))]
+            key = f"{m.group(1)[6:]}<{','.join(map(str, args))}>"
+        else:
+            key = next((k for k in ("lat_chain", "lat_redux", "lat_shfl", "lat_rate")
+                        if k in name), None)
+        if key:
+            counts[key] = {k: len(r.findall(func)) for k, r in SASS_RES.items()}
     return counts
 
 
@@ -185,10 +246,14 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 1
     print(card())
+    lat = measure_latencies()
+    print("latencies (SM cycles): " + ", ".join(f"{k} {v}" for k, v in lat.items()))
     for k_ops in K_OPS:
-        r = time_probe(n_iter, k_ops)
+        r = time_probe(n_iter, k_ops, lat=lat)
         print(f"k_ops={k_ops}: {r['us_per_iter']} us/iter ({r['ms'] / 1e3} s "
-              f"total); bound {r['bound_ms']} ms ({r['bound_class']})")
+              f"total); bound {r['bound_ms']} ms ({r['bound_class']}); critical "
+              f"path {r['class_ms']['critical_path']} ms, int32 "
+              f"{r['class_ms']['int32']} ms")
     return 0
 
 

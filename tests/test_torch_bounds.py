@@ -56,6 +56,30 @@ def test_bound_is_the_slowest_class(boost_clock, ops, by):
     assert got["bound_ms"] == pytest.approx(max(times.values()), rel=1e-12)
 
 
+@pytest.mark.parametrize("w,k_ops,n_iter,by", [
+    (64, 20, 1000, "critical_path"),  # the entry point's shape: 2 slots a lane
+    (1, 0, 10, "critical_path"),  # one slot: the column max is the REDUX alone
+    (200, 2, 7, "critical_path"),  # 7 slots a lane: a 3-deep lane max
+    (4096, 20, 1000, "int32"),  # past the register ring, the rate binds
+])
+def test_probe_critical_path_class(boost_clock, w, k_ops, n_iter, by):
+    """Given the card's latencies (cycles) and the clock, the critical path
+    is n_iter x ((k_ops + ceil(log2 ceil(W/32))) x the step + the REDUX),
+    and the bound is the largest class."""
+    lat = {"viaddmnmx": 4.5, "redux": 27.0}
+    got = probe_bound(n_iter, k_ops, w, 256, lat=lat)
+    depth = {1: 0, 64: 1, 200: 3, 4096: 7}[w]
+    cycles = n_iter * ((k_ops + depth) * 4.5 + 27.0)
+    want = {"bytes": 8 * w * 256 / 3.35e12 * 1e3,
+            "int32": w * 256 * (k_ops + 1) * n_iter / INT32_PER_S * 1e3,
+            "critical_path": cycles / HZ * 1e3}
+    assert got["class_ms"] == pytest.approx(want, rel=1e-12)
+    assert got["bound_class"] == by
+    assert got["bound_ms"] == pytest.approx(max(want.values()), rel=1e-12)
+    assert bound(1e6, critical_path=cycles)["class_ms"]["critical_path"] == \
+        pytest.approx(cycles / HZ * 1e3, rel=1e-12)
+
+
 def _walk(key, tpos, qpos, n_anchors, q_span, max_dist_t, max_dist_q, bw,
           max_iter, **_):
     """K1's pairs counted one at a time: each anchor's window scanned from

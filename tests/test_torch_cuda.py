@@ -22,7 +22,7 @@ from rawhash_tpu_torch.chain.fill import MAX_ITER_CAP, chain_fill  # noqa: E402
 from rawhash_tpu_torch.map.engine import fill_params  # noqa: E402
 from rawhash_tpu_torch.profiling.bounds import fill_work  # noqa: E402
 from rawhash_tpu_torch.profiling.fill_loop_overhead import (  # noqa: E402
-    INT32_MIN, MAX_W, fill_loop_probe, fill_loop_probe_plain,
+    INT32_MIN, MAX_W, fill_loop_probe, fill_loop_probe_plain, measure_latencies,
 )
 from rawhash_tpu_torch.synthetic import (  # noqa: E402
     ava_fixture_reads, border_anchors, clustered_anchors, options, random_chains,
@@ -204,8 +204,8 @@ def test_chain_backtrack_rejects_wrong_dtype_or_device(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k_ops", [2, 60])
-@pytest.mark.parametrize("w", [64, 200])
+@pytest.mark.parametrize("k_ops", [2, 7, 60])
+@pytest.mark.parametrize("w", [33, 64, 200, 257])
 def test_fill_loop_probe_kernel_matches_plain(cuda_device, w, k_ops):
     x = torch.from_numpy(np.random.default_rng(w + k_ops).integers(
         -2**20, 2**20, (w, 256)).astype(np.int32)).to(cuda_device)
@@ -228,6 +228,12 @@ def test_fill_loop_probe_rejects_wrong_input(cuda_device):
                 torch.zeros((MAX_W + 1, 2), dtype=torch.int32, device=cuda_device)):
         with pytest.raises(ValueError):
             fill_loop_probe(bad, 10, 2)
+
+
+@pytest.mark.cuda
+def test_probe_latencies_measure(cuda_device):
+    lat = measure_latencies(64, 4)
+    assert all(v > 0 for v in lat.values()), lat
 
 
 @pytest.mark.cuda

@@ -1,8 +1,10 @@
 """The fill-loop-overhead probe: the plain PyTorch probe against the JAX
 probe (tools/profiling/fill_loop_overhead.py, its Pallas kernel run by the
-interpreter), and the CUDA kernel's own iteration (csrc/fill_loop_probe.cuh,
-built here with g++) against the plain probe, bit for bit.  The kernel
-itself runs on a card in test_torch_cuda.py."""
+interpreter), and the CUDA kernel's own iteration (csrc/fill_loop_probe.cuh
+through csrc/fill_loop_probe_host.cpp, built here with g++: the serial
+order and every warp instance the kernel picks, with the lanes as a loop)
+against the plain probe, bit for bit.  The kernel itself runs on a card in
+test_torch_cuda.py."""
 
 import ctypes
 import importlib.util
@@ -156,42 +158,36 @@ def test_module_entry_point_without_a_card_exits_nonzero():
     assert proc.returncode != 0 and proc.stdout == ""
 
 
-HARNESS = r"""
-#include <stddef.h>
-#include <vector>
-#include "fill_loop_probe.cuh"
-// the [w, b] ring, column by column, as the kernel's warps run it
-extern "C" void probe(int* ring, int w, int b, int n_iter, int k_ops) {
-  std::vector<int> col(w);
-  for (int c = 0; c < b; ++c) {
-    for (int s = 0; s < w; ++s) col[s] = ring[(size_t)s * b + c];
-    rh_probe_column(col.data(), w, n_iter, k_ops);
-    for (int s = 0; s < w; ++s) ring[(size_t)s * b + c] = col[s];
-  }
-}
-extern "C" int chain(int r, int acc, int k_ops) { return rh_probe_chain(r, acc, k_ops); }
-"""
-
-
 @pytest.fixture(scope="module")
 def harness(tmp_path_factory):
-    """The kernel's header built as host C++."""
+    """The kernel's header built as host C++ (csrc/fill_loop_probe_host.cpp):
+    the serial column order and the warp forms with the lanes as a loop."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("no g++ to build the kernel-logic harness")
-    d = tmp_path_factory.mktemp("probe_harness")
-    (d / "harness.cpp").write_text(HARNESS)
-    so = d / "harness.so"
+    so = tmp_path_factory.mktemp("probe_harness") / "probe_host.so"
     subprocess.run(
         [gxx, "-O2", "-std=c++17", "-shared", "-fPIC", f"-I{CSRC}",
-         str(d / "harness.cpp"), "-o", str(so)],
+         str(CSRC / "fill_loop_probe_host.cpp"), "-o", str(so)],
         check=True, capture_output=True,
     )
     lib = ctypes.CDLL(str(so))
-    lib.probe.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 4
-    lib.chain.argtypes = [ctypes.c_int] * 3
-    lib.chain.restype = ctypes.c_int
+    for fn in (lib.rh_probe_serial, lib.rh_probe_warp):
+        fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 4
+    lib.rh_probe_warp.restype = ctypes.c_int
+    lib.rh_probe_chain1.argtypes = [ctypes.c_int] * 3
+    lib.rh_probe_chain1.restype = ctypes.c_int
     return lib
+
+
+def _host_forms(harness, x, n_iter, k_ops):
+    """The ring after n_iter iterations from x by the serial order and by the
+    warp form the kernel picks, and that form's SPL (0: shared memory)."""
+    w, b = x.shape
+    serial, warp = x.copy(), x.copy()
+    harness.rh_probe_serial(serial.ctypes.data_as(ctypes.c_void_p), w, b, n_iter, k_ops)
+    spl = harness.rh_probe_warp(warp.ctypes.data_as(ctypes.c_void_p), w, b, n_iter, k_ops)
+    return serial, warp, spl
 
 
 @pytest.mark.parametrize("seed,w,b,n_iter,k_ops,lo,hi", [
@@ -203,10 +199,10 @@ def harness(tmp_path_factory):
 ])
 def test_kernel_iteration_matches_plain(harness, seed, w, b, n_iter, k_ops, lo, hi):
     x = np.random.default_rng(seed).integers(lo, hi, (w, b), endpoint=True).astype(np.int32)
-    ring = x.copy()
-    harness.probe(ring.ctypes.data_as(ctypes.c_void_p), w, b, n_iter, k_ops)
+    serial, warp, _ = _host_forms(harness, x, n_iter, k_ops)
     want = fill_loop_probe_plain(torch.from_numpy(x), n_iter, k_ops).numpy()
-    np.testing.assert_array_equal(ring, want)
+    np.testing.assert_array_equal(serial, want)
+    np.testing.assert_array_equal(warp, want)
     if lo > 0 and n_iter == 1:
         assert (want < 0).any()  # slots that passed INT32_MAX wrapped around
     elif lo > 0:
@@ -215,12 +211,33 @@ def test_kernel_iteration_matches_plain(harness, seed, w, b, n_iter, k_ops, lo, 
         assert (want == INT32_MAX).all()
 
 
+@pytest.mark.parametrize("k_ops", [0, 2, 7, 20, 60])  # 7, 0: the runtime-k_ops instances
+@pytest.mark.parametrize("w", [1, 31, 32, 33, 64, 200, 256, 257, 1000])
+def test_warp_forms_match_plain(harness, w, k_ops):
+    """Every warp instance the kernel picks (the ring in registers, SPL =
+    ceil(W/32) entries a lane, up to W = 256; in shared memory past it)
+    against the plain probe, from a random start and from starts that wrap
+    past INT32_MAX or sit at INT32_MIN; masked entries (W % 32 != 0) must
+    stay out of the column max."""
+    n_iter = min(w, 64) + 7  # every slot written at least once up to W = 64
+    rng = np.random.default_rng(w * 100 + k_ops)
+    for lo, hi in ((-10**6, 10**6), (INT32_MAX - 100, INT32_MAX),
+                   (INT32_MIN, INT32_MIN + 100)):
+        for it in (1, n_iter):
+            x = rng.integers(lo, hi, (w, 3), endpoint=True).astype(np.int32)
+            serial, warp, spl = _host_forms(harness, x, it, k_ops)
+            want = fill_loop_probe_plain(torch.from_numpy(x), it, k_ops).numpy()
+            np.testing.assert_array_equal(serial, want)
+            np.testing.assert_array_equal(warp, want)
+            assert spl == (-(-w // 32) if w <= 256 else 0)
+
+
 @pytest.mark.parametrize("r,acc,k_ops,want", [
     (5, 0, 3, 8), (-7, 100, 2, 101), (INT32_MAX, INT32_MIN, 1, INT32_MIN),
     (INT32_MAX - 1, -3, 4, -1), (12, INT32_MIN, 0, 12),
 ])
 def test_kernel_chain_wraps_like_int32(harness, r, acc, k_ops, want):
-    assert harness.chain(r, acc, k_ops) == want
+    assert harness.rh_probe_chain1(r, acc, k_ops) == want
     got = fill_loop_probe_plain(torch.tensor([[r]], dtype=torch.int32), 1, k_ops)
     if acc == INT32_MIN:  # the plain probe's first carry
         assert int(got) == want
