@@ -41,14 +41,15 @@ Phases, each printed as one JSON line and each fatal on failure:
   6. fixture   the CLI (`python -m rawhash_tpu_torch`) on a small fixture,
                --device cuda vs --device cpu: same mapped reads, same PAF
                columns 1, 5 and 6, column 8 within 20; and on cuda with
-               RAWHASH_TPU_DEVICE_TAIL=1: PAF columns 1-12 of the mapped
-               rows equal to the host tail's; then, cuda vs cpu, the
+               RAWHASH_TPU_DEVICE_TAIL=1, and at --batch-reads 2: PAF
+               columns 1-12 equal to the one-batch host tail's; then,
+               cuda vs cpu, the
                all-vs-all fixture (5 overlapping reads, `-x ava-viral`,
                index built with --sig-target) reports the same overlap
                pairs, --out-quantize prints the same bytes, and
                --sequence-until stops at the same read
   7. d1        SARS-CoV-2-sized deployment: 30 kb genome, viral preset,
-               5 x 256 reads of 1200 bases; stays on the host tail
+               2 x 256 reads of 1200 bases; stays on the host tail
   8. d2        E. coli-sized deployment: 5 Mbp genome, sensitive preset,
                2 x 256 reads of 2500 bases, --max-anchors 16384; switches
                to the device tail
@@ -59,13 +60,18 @@ Phases, each printed as one JSON line and each fatal on failure:
  10. d2_kernels the backtrack on the inputs d2's main path gave it (its
                widest device-tail call, caught during the run), as in
                phase 3, every row held bit for bit against the plain
-               version, with the staging depths
+               version, with the staging depths; and the standalone
+               backtrack + compaction (backtrack_compact): its kernel route
+               on the whole call timed beside chain_backtrack, its launches
+               counted by chain_backtrack's counter, every output held
+               whole on the same rows against its CPU route
      d4_kernels both kernels on d4's widest device-tail call: timed at
                that whole shape (median of 5), and 8 of its rows at full
                width held bit for bit against the plain fill and the plain
                backtrack (all ten outputs, compaction, carried prefix) on
                CPU copies, each plain version timed once; with the fill
-               input's chain segments and the backtrack's work and depths
+               input's chain segments and the backtrack's work and depths,
+               and backtrack_compact as in d2_kernels on the same 8 rows
  11. fill_warps K1 at 4, 8 and 16 warps a read on the main path's own fill
                inputs (the widest fill call of d1, d2 and d4, caught during
                their runs) and on k1's sensitive 256 x 16384 input: each
@@ -80,13 +86,13 @@ Phases, each printed as one JSON line and each fatal on failure:
                overlap pairs as bench.py counts them (min_ov 450); the
                engine must take the device tail; no record with a query
                name at or after its target's
-     ava_tails the first 64 ava reads again on the forced host tail and the
-               forced device tail, PAF columns 1-12 equal
+     ava_tails the first 64 ava reads again on the forced host tail, PAF
+               columns 1-12 equal to the ava run's (device tail) for them
      ava_kernels both kernels on ava's widest device-tail call, as
                d4_kernels (8 rows held), with the ava preset's parameters
  13. ava_quality bench.py's own ava workload unchanged (120 reads of 1500
-               bases, 60 kb, seed 23, `-x ava-viral`, --max-anchors 2048):
-               precision >= 0.12 and recall >= 0.65
+               bases, 60 kb, seed 23, `-x ava-viral`, --max-anchors 2048),
+               mapped as one batch: precision >= 0.12 and recall >= 0.65
  14. dtw       D1's genome indexed with --store-sig, `-x viral
                --dtw-evaluate-chains`, 1 x 256 reads; every dtw_banded_batch
                call timed (CUDA events), the widest one run again on CPU
@@ -98,8 +104,8 @@ Phases, each printed as one JSON line and each fatal on failure:
                on one card), on the first batch of d1 (host tail) and of d2
                (device tail: K1 and the backtrack on the rank's rows): PAF
                columns 1-12 equal to the single-device engine's on the same
-               reads (mapped just before, outside the counted run); bp/s of
-               both, shard_hits, the gather and lookup+expand seconds
+               reads (in the cell's main run); bp/s of both, shard_hits,
+               the gather and lookup+expand seconds
  17. multihost `python -m rawhash_tpu_torch.parallel.multihost --selftest
                --device cuda` as its own process, a world of one over NCCL:
                must print MULTIHOST_OK
@@ -110,22 +116,30 @@ Phases, each printed as one JSON line and each fatal on failure:
                shared-memory path at W = 14464, the plain fill once, with its
                bound; then the CLI maps the fixture with --max-iterations
                20000 on cuda
-     pipeline  D1 (host tail, 5 batches) and D2 (device tail, 2 batches)
-               mapped again from the same reads at --pipeline-depth 1, then
-               3: records equal to the main run's (which ran at the default
-               depth, 3); bp/s, wall seconds, the stage sums and the
-               distinct CUDA streams K1 and K2 launched on, per cell and
-               depth (one a batch in flight: more than one at depth 3)
+     pipeline  D1 (host tail) and D2 (device tail), 2 batches each, mapped
+               again from the same reads at --pipeline-depth 1: records
+               equal to the main run's, which ran at the default depth, 3;
+               bp/s, wall seconds, the stage sums and the distinct CUDA
+               streams K1 and K2 launched on, per cell and depth (one at
+               depth 1, one a batch in flight at depth 3)
 Every mapping phase runs at the default --pipeline-depth, 3 (batches in
 flight, each on a CUDA stream of its own, chunk tails on a worker pool),
 unless it says otherwise; the fixture's CLI also maps at --batch-reads 2
-with --pipeline-depth 1 and 3, PAF columns 1-12 equal.
+(three batches in flight), PAF columns 1-12 equal to the one-batch run's.
 Phases 6-9, 12-15, 16 and pipeline (not the *_kernels checks) are the main-path run:
 each resets the kernels' launch counters just before it and reads them
-just after; every kernel of its path must have launched in it (ava's,
-ava_tails's and dist's: the fill and the backtrack).  Phases 7-9, 14 and 15 need >= 95% of reads mapped at accuracy
+just after; every kernel of its path must have launched in it (ava's
+and dist's: the fill and the backtrack; ava_tails, on the host tail: the
+fill).  Phases 7-9, 14 and 15 need >= 95% of reads mapped at accuracy
 >= 0.95 (strand right, mapped target interval inside the read's true
 interval +/- 200).
+The plain versions that run on the host CPU (the backtrack on CPU copies,
+the fill of d4's and ava's held rows, backtrack_compact's CPU route), the
+fixture's --device cpu runs and the ava cell's index build go to two
+worker processes (one thread and one core each, at a lower priority) and
+run beside the card's phases; each check is made when its result is back,
+all of them before the kernels line, and a phase whose check waits emits
+its line then.
 The line before the card's line lists every kernel with its launches, error
 and times beside its bound (rawhash_tpu_torch/profiling/bounds.py: bytes,
 fp32, int32 and conversions each at the H100's own rate, and for K4 its
@@ -200,6 +214,104 @@ def timed_once(torch, fn):
     return out, s.elapsed_time(e)
 
 
+class HostWorkers:
+    """The plain versions that run on the host CPU (the backtrack on CPU
+    copies, the fill of wide rows, the CPU CLI runs) in worker processes,
+    beside the card's work: `submit(fn, *args, then=...)` queues fn(*args)
+    (numpy arrays and numbers in, numpy arrays and numbers out); `settle()`
+    waits for each in order and hands its result to its `then`, which holds
+    it against the card's output (raising Failed) and emits the phase line.
+    Nothing is left out: every check runs, later."""
+
+    def __init__(self, workers: int, threads: int):
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+
+        cores = sorted(os.sched_getaffinity(0))
+        self.pool = ProcessPoolExecutor(
+            workers, mp_context=multiprocessing.get_context("spawn"),
+            initializer=host_worker_init,
+            initargs=(threads, set(cores[-workers * threads:])))
+        self.pending = []
+
+    def submit(self, fn, *args, then=None):
+        fut = self.pool.submit(fn, *args)
+        if then is not None:
+            self.pending.append((fut, then))
+        return fut
+
+    def later(self, fn) -> None:
+        """Run fn() at settle time, after the checks queued before it."""
+        self.pending.append((None, lambda _: fn()))
+
+    def settle(self) -> None:
+        while self.pending:
+            fut, then = self.pending.pop(0)
+            then(None if fut is None else fut.result())
+
+    def close(self) -> None:
+        self.pool.shutdown(wait=True, cancel_futures=True)
+
+
+def host_worker_init(threads: int, cores: set) -> None:
+    """A host worker keeps to `cores` and yields the CPU to the process
+    that drives the card."""
+    import torch
+
+    os.sched_setaffinity(0, cores)
+    os.nice(10)
+    torch.set_num_threads(threads)
+
+
+def tensors(arrays):
+    import torch
+
+    return [torch.from_numpy(a) for a in arrays]
+
+
+def plain_fill(arrays, prm):
+    """(f, p, ms) of the plain fill on CPU tensors (in a host worker)."""
+    from rawhash_tpu_torch.chain.device import chain_fill_batch
+
+    t0 = time.perf_counter()
+    f, p = chain_fill_batch(*tensors(arrays), **prm)
+    return f.numpy(), p.numpy(), (time.perf_counter() - t0) * 1e3
+
+
+def plain_backtrack(arrays, key, bt, k_cap):
+    """(the ten outputs, compact_batch's asc and summaries of its chains,
+    ms of the backtrack) of the plain backtrack on CPU copies of (f, p,
+    n_anchors, tpos, qpos) (in a host worker)."""
+    from rawhash_tpu_torch.chain.backtrack_device import backtrack_plain, compact_batch
+
+    cpu_in = tensors(arrays)
+    t0 = time.perf_counter()
+    want = backtrack_plain(*cpu_in, **bt, k_cap=k_cap)
+    ms = (time.perf_counter() - t0) * 1e3
+    asc, _, summ = compact_batch(*want[:5], *tensors([key]), *cpu_in[3:],
+                                 q_span=bt["q_span"])
+    return [w.numpy() for w in want], asc.numpy(), summ.numpy(), ms
+
+
+def cpu_backtrack_compact(arrays, bt, k_cap):
+    """(outputs, ms) of backtrack_compact's CPU route on (f, p, n_anchors,
+    key, tpos, qpos) (in a host worker)."""
+    from rawhash_tpu_torch.chain.backtrack_device import backtrack_compact
+
+    t0 = time.perf_counter()
+    out = backtrack_compact(*tensors(arrays), **bt, k_cap=k_cap)
+    return [o.numpy() for o in out], (time.perf_counter() - t0) * 1e3
+
+
+def cli_run(args):
+    """(exit code, seconds) of the port's CLI (in a host worker)."""
+    from rawhash_tpu_torch.cli import main as cli
+
+    t0 = time.perf_counter()
+    rc = cli(args)
+    return rc, time.perf_counter() - t0
+
+
 _SPY_LOCK = threading.Lock()
 
 
@@ -255,6 +367,22 @@ def fill_bound(key, tpos, qpos, n_anchors, prm) -> dict:
             "segments": fill_segments(key, tpos, n_anchors, **prm)}
 
 
+def check_fill(torch, host, label, args, f, p, prm, row) -> None:
+    """Hold the kernel's f/p (on the card) against the plain fill on CPU
+    copies of `args` (key, tpos, qpos, n_anchors) in a host worker; when it
+    is back, `row` gets its max abs error and plain ms."""
+    f, p = f.cpu(), p.cpu()
+
+    def then(result):
+        f0, p0 = tensors(result[:2])
+        err = max(int((f - f0).abs().max()), int((p - p0).abs().max()))
+        check(torch.equal(f, f0) and torch.equal(p, p0),
+              f"{label}: kernel disagrees with the plain fill (max abs err {err})")
+        row.update(max_abs_err=err, plain_ms=result[2], plain_device="cpu")
+
+    host.submit(plain_fill, [t.cpu().numpy() for t in args], prm, then=then)
+
+
 def phase_k1(torch, dev) -> list:
     """Kernel vs plain fill on clustered anchors from a numpy seed."""
     from rawhash_tpu_torch.chain.device import chain_fill_batch
@@ -301,44 +429,44 @@ def backtrack_bound(inputs, bt, k_cap) -> dict:
             "work": work}
 
 
-def check_backtrack(torch, label, inputs, key, got, *, bt, k_cap, p_out) -> tuple:
+def check_backtrack(torch, label, inputs, key, got, row, host, *, bt, k_cap,
+                    p_out) -> None:
     """Hold the kernel's ten outputs `got` (on the card) against the plain
     version on CPU copies of `inputs` (f, p, n_anchors, tpos, qpos), and the
-    compaction of each (summaries of the live chains, carried prefix).
-    Returns (max abs error, plain ms).
+    compaction of each (summaries of the live chains, carried prefix).  The
+    plain version runs in a host worker; when it is back, `row` gets its
+    max abs error and plain ms.
 
     The plain lockstep takes ~3N steps of ~150 small ops: on the card
     (launch-bound) it ran 102 s at N=16384 and 205 s at N=40960 on an H100
     80GB HBM3 at 700 W, so it runs on CPU copies of the same tensors (~4x
     faster)."""
     from rawhash_tpu_torch.chain.backtrack import compact_from_chain_stats
-    from rawhash_tpu_torch.chain.backtrack_device import (
-        backtrack_plain, compact_batch,
-    )
 
     _, _, _, tpos, qpos = inputs
     asc, _, summ = compact_from_chain_stats(
         *got[:2], *got[6:], got[2], got[3], got[4], key, tpos, qpos,
         p_out=p_out)
     got, asc, summ = ([t.cpu() for t in got], asc.cpu(), summ.cpu())
-    cpu_in = [t.cpu() for t in inputs]
-    t0 = time.perf_counter()
-    want = backtrack_plain(*cpu_in, **bt, k_cap=k_cap)
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    err = max(int((a.long() - c.long()).abs().max()) for a, c in zip(want, got))
-    check(all(torch.equal(a, c) for a, c in zip(want, got)),
-          f"{label}: kernel disagrees with the plain version (max abs err {err})")
-    asc_b, _, summ_b = compact_batch(*want[:5], key.cpu(), *cpu_in[3:],
-                                     q_span=bt["q_span"])
-    n_u, n_v = got[2], got[4]
-    po = min(p_out, asc_b.shape[1])  # past the width, asc is padding
-    live = torch.arange(k_cap)[None, :] < n_u[:, None]
-    pre = torch.arange(po)[None, :] < n_v.clamp(max=po)[:, None]
-    check(torch.equal(summ[live], summ_b[live])
-          and torch.equal(asc[:, :po][pre], asc_b[:, :po][pre]),
-          f"{label}: compacted summaries or carried prefix differ between "
-          "the kernel's chain stats and the plain version")
-    return err, plain_ms
+
+    def then(result):
+        want, asc_b, summ_b, plain_ms = result
+        want, asc_b, summ_b = tensors(want), *tensors([asc_b, summ_b])
+        err = max(int((a.long() - c.long()).abs().max()) for a, c in zip(want, got))
+        check(all(torch.equal(a, c) for a, c in zip(want, got)),
+              f"{label}: kernel disagrees with the plain version (max abs err {err})")
+        n_u, n_v = got[2], got[4]
+        po = min(p_out, asc_b.shape[1])  # past the width, asc is padding
+        live = torch.arange(k_cap)[None, :] < n_u[:, None]
+        pre = torch.arange(po)[None, :] < n_v.clamp(max=po)[:, None]
+        check(torch.equal(summ[live], summ_b[live])
+              and torch.equal(asc[:, :po][pre], asc_b[:, :po][pre]),
+              f"{label}: compacted summaries or carried prefix differ between "
+              "the kernel's chain stats and the plain version")
+        row.update(max_abs_err=err, plain_ms=plain_ms)
+
+    host.submit(plain_backtrack, [t.cpu().numpy() for t in inputs],
+                key.cpu().numpy(), bt, k_cap, then=then)
 
 
 def backtrack_params(mo, prm) -> dict:
@@ -346,26 +474,20 @@ def backtrack_params(mo, prm) -> dict:
                 max_drop=mo.bw, q_span=prm["q_span"])
 
 
-def measure_backtrack(torch, label, inputs, key, *, bt, k_cap, p_out, reps,
-                      rows=None) -> dict:
+def measure_backtrack(torch, label, inputs, key, host, *, bt, k_cap, p_out,
+                      reps, rows=None) -> dict:
     """chain_backtrack on `inputs` (f, p, n_anchors, tpos, qpos on the
-    card): its outputs on `rows` (all if None) against the plain version on
-    CPU copies (check_backtrack), its time with its candidate order, the
-    old full-width sort's time beside the new order's, the candidates, the
-    launch plan and the counted bound with ns per serial step."""
+    card): its time with its candidate order, the old full-width sort's
+    time beside the new order's, the candidates, the launch plan and the
+    counted bound with ns per serial step; its outputs on `rows` (all if
+    None) held against the plain version on CPU copies in a host worker
+    (check_backtrack: max_abs_err and plain_ms come with it)."""
     from rawhash_tpu_torch.chain.backtrack import (
         candidate_order, candidates, chain_backtrack, launch_depth,
     )
 
-    got = chain_backtrack(*inputs, **bt, k_cap=k_cap)  # the warm-up
-    if rows is None:
-        err, plain_ms = check_backtrack(torch, label, inputs, key, got, bt=bt,
-                                        k_cap=k_cap, p_out=p_out)
-    else:
-        err, plain_ms = check_backtrack(
-            torch, f"{label} {len(rows)} rows", [t[rows] for t in inputs],
-            key[rows], [t[rows] for t in got], bt=bt, k_cap=k_cap, p_out=p_out)
     f, _, n_anchors, _, _ = inputs
+    got = chain_backtrack(*inputs, **bt, k_cap=k_cap)  # the warm-up
     ms = cuda_ms(torch, lambda: chain_backtrack(*inputs, **bt, k_cap=k_cap), reps)
     sort_ms = cuda_ms(torch, lambda: candidates(f, n_anchors), reps)
     order_ms = cuda_ms(torch, lambda: candidate_order(f, n_anchors, bt["min_sc"]), reps)
@@ -375,15 +497,22 @@ def measure_backtrack(torch, label, inputs, key, *, bt, k_cap, p_out, reps,
     check(int(n_cand.sum()) == bnd["work"]["candidates"],
           f"{label}: the candidate order and the counted work disagree")
     steps = bnd["work"]["serial_steps_max"]
-    return dict(
+    row = dict(
         b=f.shape[0], n=f.shape[1], k_cap=k_cap, anchors=int(n_anchors.sum()),
         a_max=a_max, candidates=int(n_cand.sum()), c=z_f.shape[1],
         depth=depth, n_u_max=int(got[2].max()),
         n_v_max=int(got[4].max()), chain_overflow=int(got[5].sum()),
-        max_abs_err=err, ms=ms, full_sort_ms=sort_ms, order_ms=order_ms,
-        plain_ms=plain_ms, plain_device="cpu",
+        ms=ms, full_sort_ms=sort_ms, order_ms=order_ms, plain_device="cpu",
         plain_rows=f.shape[0] if rows is None else len(rows),
         ns_per_serial_step=ms * 1e6 / max(steps, 1), **bnd)
+    if rows is None:
+        check_backtrack(torch, label, inputs, key, got, row, host, bt=bt,
+                        k_cap=k_cap, p_out=p_out)
+    else:
+        check_backtrack(torch, f"{label} {len(rows)} rows", [t[rows] for t in inputs],
+                        key[rows], [t[rows] for t in got], row, host, bt=bt,
+                        k_cap=k_cap, p_out=p_out)
+    return row
 
 
 DEPTHS = (0, 4, 8, 16, 32)
@@ -420,9 +549,10 @@ def backtrack_depths(torch, label, inputs, *, bt, k_cap) -> dict:
                 fastest=min(med, key=med.get))
 
 
-def phase_backtrack(torch, dev) -> list:
+def phase_backtrack(torch, dev, host) -> list:
     """The backtrack kernel vs its plain version on f/p from K1, and the
-    compaction of each; the staging depths on the 256 x 16384 input."""
+    compaction of each; the staging depths on the 256 x 16384 input.  Each
+    row's line is emitted once its plain version is back."""
     from rawhash_tpu_torch.chain.fill import chain_fill
     from rawhash_tpu_torch.map.engine import fill_params
     from rawhash_tpu_torch.synthetic import clustered_anchors, options
@@ -436,12 +566,12 @@ def phase_backtrack(torch, dev) -> list:
         key, tpos, qpos, n_anchors = args
         f, p = chain_fill(*args, **prm)
         inputs = (f, p, n_anchors, tpos, qpos)
-        row = measure_backtrack(torch, f"backtrack B={b} N={n}", inputs, key,
+        row = measure_backtrack(torch, f"backtrack B={b} N={n}", inputs, key, host,
                                 bt=bt, k_cap=k_cap, p_out=min(4096, n), reps=7)
         if n == 16384:
             row["depths"] = backtrack_depths(
                 torch, f"backtrack B={b} N={n}", inputs, bt=bt, k_cap=k_cap)
-        emit({"phase": "backtrack", **row})
+        host.later(lambda row=row: emit({"phase": "backtrack", **row}))
         results.append(row)
         if k_cap < 10:
             check(row["chain_overflow"] > 0, "backtrack: k_cap 4 lost no chain")
@@ -456,15 +586,21 @@ def held_rows(n_anchors, rows: int):
     return np.argsort(-na, kind="stable")[np.linspace(0, b - 1, rows).astype(int)]
 
 
-def phase_tail_kernels(torch, name, caught, *, rows=None, fill=False,
+def phase_tail_kernels(torch, name, caught, host, *, rows=None, fill=False,
                        preset="sensitive") -> dict:
     """The kernels on the inputs a cell's main path gave them: its widest
-    tail_finish call, caught there, with the cell's `preset`.  The backtrack (and, with `fill`, the
-    fill) is timed at that whole shape; its outputs on `rows` of its rows
-    (the widest, the narrowest and others evenly between them by live
-    anchors; all rows if None), at full width, are held bit for bit against
-    the plain versions on CPU copies; then the backtrack at each staging depth."""
-    from rawhash_tpu_torch.chain.device import chain_fill_batch
+    tail_finish call, caught there, with the cell's `preset`.  The
+    backtrack (and, with `fill`, the fill) is timed at that whole shape;
+    its outputs on `rows` of its rows (the widest, the narrowest and others
+    evenly between them by live anchors; all rows if None), at full width,
+    are held bit for bit against the plain versions on CPU copies in a host
+    worker; then the backtrack at each staging depth.  The standalone
+    backtrack + compaction (backtrack_compact) runs its kernel route on the
+    whole call, timed beside chain_backtrack, its launches counted by
+    chain_backtrack's counter, and is held whole on the same rows against
+    its CPU route.  The line is emitted once the plain versions are back."""
+    from rawhash_tpu_torch.chain.backtrack import chain_backtrack
+    from rawhash_tpu_torch.chain.backtrack_device import backtrack_compact
     from rawhash_tpu_torch.chain.fill import chain_fill
     from rawhash_tpu_torch.map.engine import fill_params
     from rawhash_tpu_torch.synthetic import options
@@ -483,30 +619,49 @@ def phase_tail_kernels(torch, name, caught, *, rows=None, fill=False,
         idx = torch.as_tensor(sel, device=out.f.device)
         res["plain_rows_anchors"] = [int(na[r]) for r in sel]
 
+    def held(ts):
+        return [(t if idx is None else t[idx]).cpu() for t in ts]
+
     if fill:  # K1: the main path's f/p against the plain fill
         fill_in = (out.key, out.tpos, out.qpos, out.n_anchors)
         f, p = chain_fill(*fill_in, **prm)  # also the timing's warm-up
         check(torch.equal(f, out.f) and torch.equal(p, out.p),
               f"{name}: the fill gave another f/p on the same inputs")
-        held = [t if idx is None else t[idx] for t in (*fill_in, out.f, out.p)]
-        t0 = time.perf_counter()
-        f0, p0 = chain_fill_batch(*(t.cpu() for t in held[:4]), **prm)
-        fill_plain_ms = (time.perf_counter() - t0) * 1e3
-        f_r, p_r = held[4].cpu(), held[5].cpu()
-        fill_err = max(int((f_r - f0).abs().max()), int((p_r - p0).abs().max()))
-        check(torch.equal(f_r, f0) and torch.equal(p_r, p0),
-              f"{name}: fill kernel disagrees with the plain fill (max abs err {fill_err})")
         res["fill"] = dict(ms=cuda_ms(torch, lambda: chain_fill(*fill_in, **prm), 5),
-                           plain_ms=fill_plain_ms, max_abs_err=fill_err,
                            **fill_bound(*fill_in, prm))
+        check_fill(torch, host, f"{name} fill", held(fill_in), *held((out.f, out.p)),
+                   prm, res["fill"])
 
     inputs = (out.f, out.p, out.n_anchors, out.tpos, out.qpos)
     res["backtrack"] = measure_backtrack(
-        torch, f"{name} backtrack", inputs, out.key, bt=bt, k_cap=k_cap,
+        torch, f"{name} backtrack", inputs, out.key, host, bt=bt, k_cap=k_cap,
         p_out=p_out, reps=5, rows=idx)
     res["backtrack"]["depths"] = backtrack_depths(
         torch, f"{name} backtrack", inputs, bt=bt, k_cap=k_cap)
-    emit({"phase": f"{name}_kernels", **res})
+
+    # backtrack_compact: the kernel route on the card against the CPU route
+    bc_in = (out.f, out.p, out.n_anchors, out.key, out.tpos, out.qpos)
+    n0 = chain_backtrack.launches
+    got = held(backtrack_compact(*bc_in, **bt, k_cap=k_cap))  # also the warm-up
+    check(chain_backtrack.launches == n0 + 1,
+          f"{name}: backtrack_compact launched the backtrack kernel "
+          f"{chain_backtrack.launches - n0} times, not once")
+    bc = res["backtrack_compact"] = dict(
+        ms=cuda_ms(torch, lambda: backtrack_compact(*bc_in, **bt, k_cap=k_cap), 5),
+        chain_backtrack_ms=res["backtrack"]["ms"])
+    bc["launches_counted_by_chain_backtrack"] = chain_backtrack.launches - n0
+
+    def bc_then(result):
+        want = tensors(result[0])
+        err = max(int((a.long() - c.long()).abs().max()) for a, c in zip(want, got))
+        check(all(torch.equal(a, c) for a, c in zip(want, got)),
+              f"{name}: backtrack_compact's kernel route disagrees with its CPU "
+              f"route (max abs err {err})")
+        bc.update(max_abs_err=err, cpu_ms=result[1])
+
+    host.submit(cpu_backtrack_compact, [t.numpy() for t in held(bc_in)], bt, k_cap,
+                then=bc_then)
+    host.later(lambda: emit({"phase": f"{name}_kernels", **res}))
     return res
 
 
@@ -613,7 +768,7 @@ def phase_loops(torch, dev) -> dict:
     out = {"b": b, "l": l, "e_cap": mo.max_events_per_chunk,
            "mean_events": float(n_ev.float().mean())}
     for name, (fn, a, k) in caught.items():
-        out[f"{name}_ms"] = cuda_ms(torch, lambda: fn(*a, **k), 3)
+        out[f"{name}_ms"] = cuda_ms(torch, lambda: fn(*a, **k), 1)
     emit({"phase": "loops", **out})
     return out
 
@@ -702,7 +857,13 @@ def phase_k4(torch, dev) -> dict:
     return out
 
 
-def phase_fixture(d: Path) -> dict:
+def phase_fixture(d: Path, host) -> dict:
+    """The CLI on the fixture, each preset: --device cuda against --device
+    cpu (the cpu run in a host worker, beside the cuda runs, held against
+    them when it is back), the forced device tail, and two reads a batch
+    (three batches) at the default --pipeline-depth, 3, against the
+    one-batch run; then the other modes (fixture_modes).  Depth 1 over
+    several batches is the pipeline phase's, on D1 and D2."""
     from rawhash_tpu_torch.cli import main as cli
     from rawhash_tpu_torch.synthetic import write_fixture
 
@@ -713,68 +874,78 @@ def phase_fixture(d: Path) -> dict:
         rc = cli(["-x", preset, "-p", str(d / "pore.model"), "-d", str(idx),
                   str(d / "ref.fa"), "--device", "cuda"])
         check(rc == 0, f"fixture index build failed ({rc})")
+
+        def args(run, device, more=(), preset=preset, idx=idx):
+            return ["-x", preset, "--max-anchors", "512", str(idx),
+                    str(d / "reads.sig.npz"), "--device", device,
+                    "-o", str(d / f"{preset}_{run}.paf"), *more]
+
+        def paf(run, preset=preset):
+            return [l.split("\t") for l in (d / f"{preset}_{run}.paf").read_text().splitlines()]
+
         pafs = {}
-        # (run, device, more arguments): the last two map two reads a batch
-        # (three batches) at --pipeline-depth 1 and at the default, 3
-        for run, device, more in (
-                ("cuda", "cuda", []), ("cpu", "cpu", []), ("cuda_tail", "cuda", []),
-                ("cuda_depth1", "cuda", ["--batch-reads", "2", "--pipeline-depth", "1"]),
-                ("cuda_depth3", "cuda", ["--batch-reads", "2"])):
-            paf = d / f"{preset}_{run}.paf"
+        # (run, more arguments): the last maps two reads a batch (three
+        # batches in flight at the default --pipeline-depth, 3)
+        for run, more in (("cuda", []), ("cuda_tail", []),
+                          ("cuda_depth3", ["--batch-reads", "2"])):
             if run == "cuda_tail":
                 os.environ["RAWHASH_TPU_DEVICE_TAIL"] = "1"
             t0 = time.perf_counter()
             try:
-                rc = cli(["-x", preset, "--max-anchors", "512", str(idx),
-                          str(d / "reads.sig.npz"), "--device", device,
-                          "-o", str(paf), *more])
+                rc = cli(args(run, "cuda", more))
             finally:
                 os.environ.pop("RAWHASH_TPU_DEVICE_TAIL", None)
             check(rc == 0, f"fixture mapping ({run}) failed ({rc})")
-            pafs[run] = ([l.split("\t") for l in paf.read_text().splitlines()],
-                         time.perf_counter() - t0)
+            pafs[run] = (paf(run), time.perf_counter() - t0)
         rows = {run: {c[0]: c for c in cols if c[4] in "+-"}
                 for run, (cols, _) in pafs.items()}
-        diffs = []
-        for name in sorted(set(rows["cuda"]) | set(rows["cpu"])):
-            a, c = rows["cuda"].get(name), rows["cpu"].get(name)
-            if a is None or c is None or a[:12] != c[:12]:
-                diffs.append({"read": name, "cuda": a and a[:12], "cpu": c and c[:12]})
         tail_same = ({n: r[:12] for n, r in rows["cuda_tail"].items()}
                      == {n: r[:12] for n, r in rows["cuda"].items()})
         cols = {run: [c[:12] for c in pafs[run][0]] for run in pafs}
-        depths_same = cols["cuda_depth1"] == cols["cuda_depth3"] == cols["cuda"]
-        emit({"phase": "fixture", "preset": preset,
-              "mapped_cuda": len(rows["cuda"]), "mapped_cpu": len(rows["cpu"]),
-              "mapped_cuda_device_tail": len(rows["cuda_tail"]),
-              "device_tail_equals_host_tail": tail_same,
-              "pipeline_depths_1_3_equal": depths_same,
-              "seconds_cuda": pafs["cuda"][1], "seconds_cpu": pafs["cpu"][1],
-              "seconds_cuda_device_tail": pafs["cuda_tail"][1],
-              "seconds_cuda_depth1": pafs["cuda_depth1"][1],
-              "seconds_cuda_depth3": pafs["cuda_depth3"][1],
-              "differences": diffs})
-        check(set(rows["cuda"]) == set(rows["cpu"]), "fixture: mapped sets differ")
-        for name, a in rows["cuda"].items():
-            c = rows["cpu"][name]
-            check(a[0] == c[0] and a[4] == c[4] and a[5] == c[5],
-                  f"fixture: PAF columns 1/5/6 differ for {name}")
-            check(abs(int(a[7]) - int(c[7])) <= 20,
-                  f"fixture: PAF column 8 differs by > 20 for {name}")
-        check(tail_same, "fixture: the device tail's PAF columns 1-12 differ "
-              "from the host tail's on cuda")
-        check(depths_same, "fixture: PAF columns 1-12 at --pipeline-depth 1 and "
-              "3 (two reads a batch) differ from each other or the one-batch run's")
+        depths_same = cols["cuda_depth3"] == cols["cuda"]
+        line = {"phase": "fixture", "preset": preset,
+                "mapped_cuda": len(rows["cuda"]),
+                "mapped_cuda_device_tail": len(rows["cuda_tail"]),
+                "device_tail_equals_host_tail": tail_same,
+                "three_batches_depth3_equal_one_batch": depths_same,
+                "seconds_cuda": pafs["cuda"][1],
+                "seconds_cuda_device_tail": pafs["cuda_tail"][1],
+                "seconds_cuda_depth3": pafs["cuda_depth3"][1]}
+        check(tail_same, f"fixture {preset}: the device tail's PAF columns 1-12 "
+              "differ from the host tail's on cuda")
+        check(depths_same, f"fixture {preset}: PAF columns 1-12 of three batches at "
+              "--pipeline-depth 3 differ from the one-batch run's")
+
+        def then(result, preset=preset, on_cuda=rows["cuda"], line=line, paf=paf):
+            rc, seconds = result
+            check(rc == 0, f"fixture {preset}: mapping on cpu failed ({rc})")
+            on_cpu = {c[0]: c for c in paf("cpu") if c[4] in "+-"}
+            diffs = []
+            for name in sorted(set(on_cuda) | set(on_cpu)):
+                a, c = on_cuda.get(name), on_cpu.get(name)
+                if a is None or c is None or a[:12] != c[:12]:
+                    diffs.append({"read": name, "cuda": a and a[:12], "cpu": c and c[:12]})
+            emit({**line, "mapped_cpu": len(on_cpu), "seconds_cpu": seconds,
+                  "differences": diffs})
+            check(set(on_cuda) == set(on_cpu), f"fixture {preset}: mapped sets differ")
+            for name, a in on_cuda.items():
+                c = on_cpu[name]
+                check(a[0] == c[0] and a[4] == c[4] and a[5] == c[5],
+                      f"fixture {preset}: PAF columns 1/5/6 differ for {name}")
+                check(abs(int(a[7]) - int(c[7])) <= 20,
+                      f"fixture {preset}: PAF column 8 differs by > 20 for {name}")
+
+        host.submit(cli_run, args("cpu", "cpu"), then=then)
         out[preset] = len(rows["cuda"])
-    out.update(fixture_modes(d, cli))
+    out.update(fixture_modes(d, cli, host))
     return out
 
 
-def fixture_modes(d: Path, cli) -> dict:
+def fixture_modes(d: Path, cli, host) -> dict:
     """The other modes on small fixtures through the CLI, --device cuda
-    against --device cpu: all-vs-all (the same overlap pairs),
-    --out-quantize (the same bytes), --sequence-until (the same stopping
-    read)."""
+    against --device cpu (in a host worker, held against the cuda runs
+    when it is back): all-vs-all (the same overlap pairs), --out-quantize
+    (the same bytes), --sequence-until (the same stopping read)."""
     from rawhash_tpu_torch.io.sigfile import write_sig_npz
     from rawhash_tpu_torch.synthetic import ava_fixture_reads
 
@@ -793,34 +964,44 @@ def fixture_modes(d: Path, cli) -> dict:
                            "--max-anchors", "512", str(d / "ref_sensitive.rhi.npz"),
                            str(d / "reads.sig.npz")],
     }
-    got = {}
-    for mode, args in runs.items():
-        for device in ("cuda", "cpu"):
-            path = d / f"{mode}_{device}.out"
-            t0 = time.perf_counter()
-            check(cli(args + ["--device", device, "-o", str(path)]) == 0,
-                  f"fixture {mode} on {device} failed")
-            got[mode, device] = (path.read_bytes(), time.perf_counter() - t0)
-    pairs = {dev: sorted({(c[0], c[5]) for c in (l.split("\t") for l in
-                          got["ava", dev][0].decode().splitlines()) if c[5] != "*"})
-             for dev in ("cuda", "cpu")}
-    stops = {dev: [l.split("\t")[0] for l in
-                   got["sequence_until", dev][0].decode().splitlines()]
-             for dev in ("cuda", "cpu")}
-    row = {"ava_pairs_cuda": pairs["cuda"], "ava_pairs_cpu": pairs["cpu"],
-           "out_quantize_bytes": len(got["out_quantize", "cuda"][0]),
-           "out_quantize_same": got["out_quantize", "cuda"][0] == got["out_quantize", "cpu"][0],
-           "sequence_until_reads_cuda": len(stops["cuda"]),
-           "sequence_until_reads_cpu": len(stops["cpu"]),
-           **{f"seconds_{m}_{dev}": t for (m, dev), (_, t) in got.items()}}
-    emit({"phase": "fixture_modes", **row})
-    check(pairs["cuda"] == pairs["cpu"] and len(pairs["cuda"]) >= 2,
-          "fixture: all-vs-all overlap pairs differ between cuda and cpu (or < 2)")
-    check(row["out_quantize_same"], "fixture: --out-quantize output differs")
-    check(stops["cuda"] == stops["cpu"] and 0 < len(stops["cuda"]) < 6,
-          "fixture: --sequence-until stopped at another read (or not at all)")
-    return {"ava_pairs": len(pairs["cuda"]),
-            "sequence_until_reads": len(stops["cuda"])}
+
+    def args(mode, device):
+        return runs[mode] + ["--device", device, "-o", str(d / f"{mode}_{device}.out")]
+
+    def outputs(device):
+        got = {m: (d / f"{m}_{device}.out").read_bytes() for m in runs}
+        pairs = sorted({(c[0], c[5]) for c in (l.split("\t") for l in
+                        got["ava"].decode().splitlines()) if c[5] != "*"})
+        stops = [l.split("\t")[0] for l in got["sequence_until"].decode().splitlines()]
+        return pairs, got["out_quantize"], stops
+
+    seconds = {}
+    for mode in runs:
+        t0 = time.perf_counter()
+        check(cli(args(mode, "cuda")) == 0, f"fixture {mode} on cuda failed")
+        seconds[f"seconds_{mode}_cuda"] = time.perf_counter() - t0
+    pairs, quantized, stops = outputs("cuda")
+    check(len(pairs) >= 2, "fixture: all-vs-all found < 2 overlap pairs on cuda")
+    check(0 < len(stops) < 6, "fixture: --sequence-until did not stop early on cuda")
+    on_cpu = {mode: host.submit(cli_run, args(mode, "cpu")) for mode in runs}
+
+    def held():
+        for mode, fut in on_cpu.items():
+            rc, seconds[f"seconds_{mode}_cpu"] = fut.result()
+            check(rc == 0, f"fixture {mode} on cpu failed")
+        pairs_cpu, quantized_cpu, stops_cpu = outputs("cpu")
+        emit({"phase": "fixture_modes", "ava_pairs_cuda": pairs, "ava_pairs_cpu": pairs_cpu,
+              "out_quantize_bytes": len(quantized),
+              "out_quantize_same": quantized == quantized_cpu,
+              "sequence_until_reads_cuda": len(stops),
+              "sequence_until_reads_cpu": len(stops_cpu), **seconds})
+        check(pairs == pairs_cpu, "fixture: all-vs-all overlap pairs differ between "
+              "cuda and cpu")
+        check(quantized == quantized_cpu, "fixture: --out-quantize output differs")
+        check(stops == stops_cpu, "fixture: --sequence-until stopped at another read")
+
+    host.later(held)
+    return {"ava_pairs": len(pairs), "sequence_until_reads": len(stops)}
 
 
 def catch_widest(caught, also=None):
@@ -955,25 +1136,36 @@ def score_mapping(reads, results, mopt, read_len) -> tuple:
 AVA = dict(n_reads=512, genome_len=250_000, read_len=3000, seed=23)
 
 
-def phase_ava(torch, dev, caught) -> dict:
-    """All-vs-all overlapping at full width: the `ava` preset on the AVA
-    reads, the index built from their signals, mapped 256 reads at a time
-    on the engine's own tail choice.  The run's widest fill and device-tail
-    calls are kept in `caught` (catch_widest), and (index, options, reads)
-    in caught["rerun"] for phase_ava_tails."""
-    from rawhash_tpu_torch.chain.backtrack import chain_backtrack
+def ava_workload():
+    """(reads, truth pairs, truth pairs >= min_ov, index, seconds of each)
+    of the AVA cell: the reads and the index built from their signals (set
+    up in a host worker, beside the card's earlier phases)."""
     from rawhash_tpu_torch.index.build import build_index_from_signals
-    from rawhash_tpu_torch.map.engine import MappingEngine
-    from rawhash_tpu_torch.synthetic import options, overlap_quality, overlap_workload
+    from rawhash_tpu_torch.synthetic import options, overlap_workload
 
     t0 = time.perf_counter()
     reads, truth_any, truth_sub = overlap_workload(**AVA)
     t_reads = time.perf_counter() - t0
-    io, mo = options("ava")
-    mo.batch_reads = 256
     t0 = time.perf_counter()
-    index = build_index_from_signals(reads, None, io)
-    t_index = time.perf_counter() - t0
+    index = build_index_from_signals(reads, None, options("ava")[0])
+    return reads, truth_any, truth_sub, index, t_reads, time.perf_counter() - t0
+
+
+def phase_ava(torch, dev, caught, workload) -> dict:
+    """All-vs-all overlapping at full width: the `ava` preset on the AVA
+    reads, the index built from their signals (`workload`, from
+    ava_workload), mapped 256 reads at a time on the engine's own tail
+    choice.  The run's widest fill and device-tail calls are kept in
+    `caught` (catch_widest), and (index, options, the first 64 reads, their
+    PAF columns 1-12) in caught["rerun"] for phase_ava_tails."""
+    from rawhash_tpu_torch.chain.backtrack import chain_backtrack
+    from rawhash_tpu_torch.io.paf import paf_lines
+    from rawhash_tpu_torch.map.engine import MappingEngine
+    from rawhash_tpu_torch.synthetic import options, overlap_quality
+
+    reads, truth_any, truth_sub, index, t_reads, t_index = workload
+    _, mo = options("ava")
+    mo.batch_reads = 256
     check(index.sig_target and index.n_seq == len(reads), "ava: not a signal-target index")
     engine = MappingEngine(index, mo, device=dev)
     fills = []  # each fill call's live anchors a read
@@ -987,7 +1179,8 @@ def phase_ava(torch, dev, caught) -> dict:
         put_back(originals)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    caught["rerun"] = (index, mo, reads[:64])
+    caught["rerun"] = (index, mo, reads[:64], [
+        line.split("\t")[:12] for res in results[:64] for line in paf_lines(res, index)])
 
     pred, ranked_wrong, n_records = set(), [], 0
     for res in results:
@@ -1030,35 +1223,35 @@ def phase_ava(torch, dev, caught) -> dict:
 
 
 def phase_ava_tails(torch, dev, rerun) -> dict:
-    """The ava cell's first 64 reads again, once on each forced tail
-    (RAWHASH_TPU_NO_DEVICE_TAIL=1, then RAWHASH_TPU_DEVICE_TAIL=1), through
-    map_batch; their PAF columns 1-12 must be equal."""
+    """The ava cell's first 64 reads again on the forced host tail
+    (RAWHASH_TPU_NO_DEVICE_TAIL=1), through map_batch: their PAF columns
+    1-12 must equal the ava run's for them, which took the device tail."""
     from rawhash_tpu_torch.io.paf import paf_lines
     from rawhash_tpu_torch.map.engine import MappingEngine
 
-    index, mo, reads = rerun
-    pafs = {}
-    for var in ("RAWHASH_TPU_NO_DEVICE_TAIL", "RAWHASH_TPU_DEVICE_TAIL"):
-        os.environ[var] = "1"
-        try:
-            eng = MappingEngine(index, mo, device=dev)
-            pafs[var] = [line.split("\t")[:12] for res in eng.map_batch(reads)
-                         for line in paf_lines(res, index)]
-        finally:
-            os.environ.pop(var)
-    same = pafs["RAWHASH_TPU_NO_DEVICE_TAIL"] == pafs["RAWHASH_TPU_DEVICE_TAIL"]
-    row = dict(reads=len(reads), records=len(pafs["RAWHASH_TPU_DEVICE_TAIL"]),
-               paf_equal=same)
+    index, mo, reads, device_tail = rerun
+    os.environ["RAWHASH_TPU_NO_DEVICE_TAIL"] = "1"
+    try:
+        eng = MappingEngine(index, mo, device=dev)
+        host_tail = [line.split("\t")[:12] for res in eng.map_batch(reads)
+                     for line in paf_lines(res, index)]
+    finally:
+        os.environ.pop("RAWHASH_TPU_NO_DEVICE_TAIL")
+    row = dict(reads=len(reads), records=len(host_tail),
+               device_tail=eng.device_tail, paf_equal=host_tail == device_tail)
     emit({"phase": "ava_tails", **row})
-    check(same, "ava: the host tail's and the device tail's PAF columns 1-12 "
-          "differ on the first 64 reads")
+    check(not eng.device_tail, "ava_tails: the forced host tail took the device tail")
+    check(row["paf_equal"], "ava: the host tail's and the device tail's PAF "
+          "columns 1-12 differ on the first 64 reads")
     return row
 
 
 def phase_ava_quality(torch, dev) -> dict:
     """bench.py's all-vs-all workload unchanged: 120 reads of 1500 bases
-    from a 60 kb genome (seed 23), `-x ava-viral`, --max-anchors 2048,
-    mapped 64 reads at a time; the overlap pairs' precision and recall."""
+    from a 60 kb genome (seed 23), `-x ava-viral`, --max-anchors 2048; the
+    overlap pairs' precision and recall.  bench.py maps 64 reads at a time;
+    here one batch of 120 does, one event-detection pass instead of two
+    (a read's records do not depend on its batch)."""
     from rawhash_tpu_torch.index.build import build_index_from_signals
     from rawhash_tpu_torch.map.engine import MappingEngine
     from rawhash_tpu_torch.synthetic import options, overlap_quality, overlap_workload
@@ -1070,12 +1263,11 @@ def phase_ava_quality(torch, dev) -> dict:
     engine = MappingEngine(index, mo, device=dev)
     t0 = time.perf_counter()
     pred = set()
-    for i in range(0, len(reads), 64):
-        for res in engine.map_batch(reads[i:i + 64]):
-            for rec in res.records:
-                if rec.mapped:
-                    a, b = res.name, index.seq_names[rec.ref_id]
-                    pred.add((min(a, b), max(a, b)))
+    for res in engine.map_batch(reads):
+        for rec in res.records:
+            if rec.mapped:
+                a, b = res.name, index.seq_names[rec.ref_id]
+                pred.add((min(a, b), max(a, b)))
     torch.cuda.synchronize()
     precision, recall = overlap_quality(pred, truth_any, truth_sub)
     row = dict(reads=len(reads), seconds=time.perf_counter() - t0,
@@ -1156,86 +1348,70 @@ def map_timed(torch, engine, kept) -> tuple:
 
 
 def phase_pipeline(torch, dev, kept) -> dict:
-    """D1 (host tail, 5 batches) and D2 (device tail, 2 batches) mapped
-    again from the main run's reads at --pipeline-depth 1, then 3: records
-    equal to the main run's (at 3); per cell and depth, bp/s, wall seconds,
-    the stage sums and the distinct CUDA streams K1 and K2 launched on.  At
-    depth 1 every launch is on one stream; at depth 3 on more than one (one
-    a batch in flight)."""
+    """D1 (host tail) and D2 (device tail) mapped again from the main run's
+    reads at --pipeline-depth 1: records equal to the main run's, which ran
+    at the default depth, 3; per cell and depth, bp/s, wall seconds, the
+    stage sums and the distinct CUDA streams K1 and K2 launched on: at
+    depth 1 one, at depth 3 more than one (one a batch in flight)."""
     from rawhash_tpu_torch.map.engine import MappingEngine
 
     out = {}
     for cell, k in kept.items():
         main = k["row"]
-        runs = {"main": dict(depth=main["pipeline_depth"], seconds=main["seconds"],
-                             bp_per_s=main["bp_per_s"], streams=main["streams"],
-                             stage_seconds=main["stage_seconds"],
-                             stage_sum=sum(main["stage_seconds"].values()))}
-        for depth in (1, 3):
-            mopt = copy.deepcopy(k["mopt"])
-            mopt.pipeline_depth = depth
-            engine = MappingEngine(k["index"], mopt, device=dev)
-            caught = {}
-            originals = catch_widest(caught)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            try:
-                results = [r for batch in engine.map_stream(k["batches"]) for r in batch]
-            finally:
-                put_back(originals)
-            torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
-            n_mapped, n_correct, bases = score_mapping(k["all_reads"], results, mopt,
-                                                       k["read_len"])
-            stages = dict(engine.profiler.totals)
-            row = dict(depth=depth, pipeline_depth=engine.pipeline_depth,
-                       seconds=dt, bp_per_s=bases / dt, mapped=n_mapped,
-                       accuracy=n_correct / max(n_mapped, 1),
-                       records_equal_main=records_of(results) == k["records"],
-                       streams={n: len(v) for n, v in caught["streams"].items()},
-                       stage_seconds=stages, stage_sum=sum(stages.values()),
-                       stage_counts=dict(engine.profiler.counts),
-                       device_tail=engine.device_tail,
-                       anchor_regrows=engine.stats["anchor_regrows"])
-            emit({"phase": "pipeline", "cell": cell, **row})
-            check(row["records_equal_main"], f"pipeline {cell}: the records at "
-                  f"depth {depth} differ from the main run's (depth 3)")
-            runs[f"depth{depth}"] = row
+        check(main["pipeline_depth"] == 3, f"pipeline {cell}: the main run's "
+              f"depth is {main['pipeline_depth']}, not 3")
+        runs = {"depth3": dict(depth=3, main_run=True, seconds=main["seconds"],
+                               bp_per_s=main["bp_per_s"], streams=main["streams"],
+                               stage_seconds=main["stage_seconds"],
+                               stage_sum=sum(main["stage_seconds"].values()))}
+        mopt = copy.deepcopy(k["mopt"])
+        mopt.pipeline_depth = 1
+        engine = MappingEngine(k["index"], mopt, device=dev)
+        caught = {}
+        originals = catch_widest(caught)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            results = [r for batch in engine.map_stream(k["batches"]) for r in batch]
+        finally:
+            put_back(originals)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        n_mapped, n_correct, bases = score_mapping(k["all_reads"], results, mopt,
+                                                   k["read_len"])
+        stages = dict(engine.profiler.totals)
+        row = dict(depth=1, pipeline_depth=engine.pipeline_depth,
+                   seconds=dt, bp_per_s=bases / dt, mapped=n_mapped,
+                   accuracy=n_correct / max(n_mapped, 1),
+                   records_equal_main=records_of(results) == k["records"],
+                   streams={n: len(v) for n, v in caught["streams"].items()},
+                   stage_seconds=stages, stage_sum=sum(stages.values()),
+                   stage_counts=dict(engine.profiler.counts),
+                   device_tail=engine.device_tail,
+                   anchor_regrows=engine.stats["anchor_regrows"])
+        emit({"phase": "pipeline", "cell": cell, **row})
+        check(row["records_equal_main"], f"pipeline {cell}: the records at "
+              "depth 1 differ from the main run's (depth 3)")
+        runs["depth1"] = row
         out[cell] = runs
         kernels = ("chain_fill", "chain_backtrack") if cell == "d2" else ("chain_fill",)
         for name in kernels:
             check(runs["depth1"]["streams"][name] == 1
-                  and runs["depth3"]["streams"][name] > 1
-                  and runs["main"]["streams"][name] > 1,
-                  f"pipeline {cell}: {name} streams at depth 1 / 3 / the main "
-                  f"run: {runs['depth1']['streams'][name]} / "
-                  f"{runs['depth3']['streams'][name]} / {runs['main']['streams'][name]}")
+                  and runs["depth3"]["streams"][name] > 1,
+                  f"pipeline {cell}: {name} streams at depth 1 / 3 (the main "
+                  f"run): {runs['depth1']['streams'][name]} / "
+                  f"{runs['depth3']['streams'][name]}")
     return out
 
 
-def dist_references(torch, dev, kept) -> dict:
-    """The single-device engine's records and bp/s on each kept cell's
-    first batch, for phase_dist."""
-    from rawhash_tpu_torch.map.engine import MappingEngine
-
-    refs = {}
-    for cell, k in kept.items():
-        engine = MappingEngine(k["index"], copy.deepcopy(k["mopt"]), device=dev)
-        results, dt = map_timed(torch, engine, k)
-        refs[cell] = dict(records=records_of(results), seconds=dt,
-                          bp_per_s=score_mapping(k["reads"], results, k["mopt"],
-                                                 k["read_len"])[2] / dt,
-                          device_tail=engine.device_tail)
-    return refs
-
-
-def phase_dist(torch, dev, kept, refs) -> dict:
+def phase_dist(torch, dev, kept) -> dict:
     """The sharded engine (--n-shards 1) in a process group of one rank
     over NCCL on cuda:0, the table unsplit (one card: NCCL takes no two
     ranks on one device), on each kept cell's first batch: D1's on the host
     tail, D2's on the device tail (K1 and the backtrack on the rank's
-    rows).  PAF columns 1-12 must equal the single-device engine's (refs);
-    bp/s of both, shard_hits, the gather stage and the launches of each."""
+    rows).  PAF columns 1-12 must equal the single-device engine's on the
+    same reads, in the cell's main run; bp/s of both, shard_hits, the
+    gather stage and the launches of each."""
     import torch.distributed as tdist
 
     from rawhash_tpu_torch.chain.backtrack import chain_backtrack
@@ -1256,14 +1432,13 @@ def phase_dist(torch, dev, kept, refs) -> dict:
             results, dt = map_timed(torch, engine, k)
             n_mapped, n_correct, bases = score_mapping(k["reads"], results, mopt,
                                                        k["read_len"])
-            same = records_of(results) == refs[cell]["records"]
+            same = records_of(results) == k["records"][:len(results)]
             stages = engine.profiler.totals
             row = dict(
                 reads=len(results), mapped=n_mapped,
                 accuracy=n_correct / max(n_mapped, 1),
                 paf_equal_single_device=same, seconds=dt, bp_per_s=bases / dt,
-                single_device_bp_per_s=refs[cell]["bp_per_s"],
-                single_device_seconds=refs[cell]["seconds"],
+                single_device_bp_per_s=k["row"]["bp_per_s"],
                 world=engine.dist.world, n_shards=engine.dist.n_shards,
                 backend=tdist.get_backend(),
                 shard_hits=engine.stats["shard_hits"].tolist(),
@@ -1278,7 +1453,7 @@ def phase_dist(torch, dev, kept, refs) -> dict:
             emit({"phase": "dist", "cell": cell, **row})
             check(same, f"dist {cell}: the sharded engine's PAF columns 1-12 "
                   "differ from the single-device engine's")
-            check(engine.device_tail == refs[cell]["device_tail"],
+            check(engine.device_tail == k["row"]["device_tail"],
                   f"dist {cell}: another tail than the single-device engine's")
             out[cell] = row
     finally:
@@ -1321,23 +1496,24 @@ def phase_k1_wide(torch, dev, d: Path) -> dict:
     scratch buffer) on 8 rows of 16384 anchors, every predecessor in band
     and a chain step 14465 anchors long (synthetic.wide_band_anchors),
     sensitive parameters: bit-equal to the plain fill, and finding the
-    chains W = 14464 misses; kernel timed (median
-    of 5) beside the shared-memory path at W = 14464, the plain fill once;
-    then the CLI maps the fixture with --max-iterations 20000 on cuda."""
+    chains W = 14464 misses; kernel timed (median of 5) beside the
+    shared-memory path at W = 14464, the plain fill once; then the CLI
+    maps the fixture (in `d`, from phase_fixture, with its sensitive index)
+    with --max-iterations 20000 on cuda."""
     from rawhash_tpu_torch.chain.device import chain_fill_batch
     from rawhash_tpu_torch.chain.fill import (
         GLOBAL_RING_BUDGET, MAX_ITER_CAP, chain_fill, global_ring_plan,
     )
     from rawhash_tpu_torch.cli import main as cli
     from rawhash_tpu_torch.map.engine import fill_params
-    from rawhash_tpu_torch.synthetic import options, wide_band_anchors, write_fixture
+    from rawhash_tpu_torch.synthetic import options, wide_band_anchors
 
     c = K1_WIDE
     prm = dict(fill_params(*options("sensitive")), max_iter=c["w"])
-    host = wide_band_anchors(c["seed"], c["b"], c["n"], prm["max_dist_q"],
-                             MAX_ITER_CAP + 1)
+    host_in = wide_band_anchors(c["seed"], c["b"], c["n"], prm["max_dist_q"],
+                                MAX_ITER_CAP + 1)
     args = [torch.from_numpy(np.ascontiguousarray(x).view(np.int32)).to(dev)
-            for x in host]
+            for x in host_in]
     n0 = chain_fill.launches
     f, p = chain_fill(*args, **prm)  # also the timing's warm-up
     launches = chain_fill.launches - n0
@@ -1352,16 +1528,13 @@ def phase_k1_wide(torch, dev, d: Path) -> dict:
     cap_ms = cuda_ms(torch, lambda: chain_fill(*args, **cap), 5)
     budget = min(GLOBAL_RING_BUDGET, torch.cuda.mem_get_info(dev)[0] // 4)
     warps, rows = global_ring_plan(c["b"], c["w"], budget)
-    row = dict(**c, anchors=int(host[3].sum()), launches=launches,
+    row = dict(**c, anchors=int(host_in[3].sum()), launches=launches,
                warps=warps, rows_a_launch=rows,
                scratch_bytes=rows * warps * 16 * (c["w"] + 64),
                max_abs_err=err, ms=ms, plain_ms=plain_ms, shared_cap_ms=cap_ms,
                improved_chain_ends=int((f > f_cap).sum()), **fill_bound(*args, prm))
 
-    write_fixture(d)
-    idx = d / "ref.rhi.npz"
-    check(cli(["-x", "sensitive", "-p", str(d / "pore.model"), "-d", str(idx),
-               str(d / "ref.fa"), "--device", "cuda"]) == 0, "k1_wide: index build failed")
+    idx = d / "ref_sensitive.rhi.npz"
     paf = d / "wide.paf"
     n0 = chain_fill.launches
     rc = cli(["-x", "sensitive", "--max-iterations", str(c["w"]), "--max-anchors",
@@ -1413,6 +1586,10 @@ def main() -> int:
     t_all = time.perf_counter()
     emit({"phase": "card", "nvidia_smi": card,
           "torch": torch.__version__, "cuda": torch.version.cuda})
+    host = HostWorkers(workers=2, threads=1)
+    ava_inputs = host.submit(ava_workload)  # ready by the ava phase
+    work = tempfile.TemporaryDirectory()
+    fixture_dir = Path(work.name)
     try:
         from rawhash_tpu_torch import _build
         from rawhash_tpu_torch.chain.backtrack import chain_backtrack
@@ -1431,7 +1608,8 @@ def main() -> int:
                         if "registers" in l or "spill" in l or "Function properties" in l]})
 
         timed = {}
-        for name, fn in (("k1", phase_k1), ("backtrack", phase_backtrack),
+        for name, fn in (("k1", phase_k1),
+                         ("backtrack", lambda torch, dev: phase_backtrack(torch, dev, host)),
                          ("loops", phase_loops), ("k4", phase_k4)):
             t0 = time.perf_counter()
             timed[name] = fn(torch, dev)
@@ -1439,11 +1617,10 @@ def main() -> int:
 
         counters = {"chain_fill": chain_fill, "chain_backtrack": chain_backtrack}
         runs = {}
-        with tempfile.TemporaryDirectory() as tmp:
-            runs["fixture"] = main_path(
-                "fixture", lambda: phase_fixture(Path(tmp)), counters)
+        runs["fixture"] = main_path(
+            "fixture", lambda: phase_fixture(fixture_dir, host), counters)
         cells = {
-            "d1": (30_000, "viral", 5, 1200, 3072, 7),
+            "d1": (30_000, "viral", 2, 1200, 3072, 7),
             "d2": (5_000_000, "sensitive", 2, 2500, 16384, 11),
             "d4": (100_000_000, "sensitive", 1, 3000, 4096, 13),
         }
@@ -1462,7 +1639,7 @@ def main() -> int:
                   f"{name}: no device-tail call to check the kernels on")
             t0 = time.perf_counter()
             timed[f"{name}_kernels"] = phase_tail_kernels(
-                torch, name, caught[name].pop("tail"), rows=rows, fill=fill)
+                torch, name, caught[name].pop("tail"), host, rows=rows, fill=fill)
             emit({"phase": f"{name}_kernels_done",
                   "seconds": time.perf_counter() - t0})
         t0 = time.perf_counter()
@@ -1474,20 +1651,15 @@ def main() -> int:
         runs["pipeline"] = main_path(
             "pipeline", lambda: phase_pipeline(torch, dev, kept), counters)
 
-        # the sharded engine in a one-rank NCCL group against the
-        # single-device engine on D1's and D2's first batches; the
-        # multi-host selftest; K1 past the shared-memory cap
-        t0 = time.perf_counter()
-        refs = dist_references(torch, dev, kept)
-        emit({"phase": "dist_references_done", "seconds": time.perf_counter() - t0})
-        runs["dist"] = main_path("dist", lambda: phase_dist(torch, dev, kept, refs),
-                                 counters)
+        # the sharded engine in a one-rank NCCL group on D1's and D2's
+        # first batches, against their main runs; the multi-host selftest;
+        # K1 past the shared-memory cap
+        runs["dist"] = main_path("dist", lambda: phase_dist(torch, dev, kept), counters)
         kept.clear()
         for name, fn in (("multihost", lambda: phase_multihost(torch)),
-                         ("k1_wide", lambda: phase_k1_wide(torch, dev, Path(tmp)))):
+                         ("k1_wide", lambda: phase_k1_wide(torch, dev, fixture_dir))):
             t0 = time.perf_counter()
-            with tempfile.TemporaryDirectory() as tmp:
-                timed[name] = fn()
+            timed[name] = fn()
             emit({"phase": f"{name}_done", "seconds": time.perf_counter() - t0})
 
         # the other mapping modes: all-vs-all, DTW, RMQ, --bw-long
@@ -1499,7 +1671,7 @@ def main() -> int:
 
         ava = {}  # the ava cell's widest fill/tail calls, and its reruns' inputs
         modes = {
-            "ava": lambda: phase_ava(torch, dev, ava),
+            "ava": lambda: phase_ava(torch, dev, ava, ava_inputs.result()),
             "ava_tails": lambda: phase_ava_tails(torch, dev, ava.pop("rerun")),
             "ava_quality": lambda: phase_ava_quality(torch, dev),
             "dtw": lambda: phase_dtw(torch, dev),
@@ -1515,7 +1687,7 @@ def main() -> int:
         check("tail" in ava, "ava: no device-tail call to check the kernels on")
         t0 = time.perf_counter()
         timed["ava_kernels"] = phase_tail_kernels(
-            torch, "ava", ava.pop("tail"), rows=8, fill=True, preset="ava")
+            torch, "ava", ava.pop("tail"), host, rows=8, fill=True, preset="ava")
         ava.clear()
         emit({"phase": "ava_kernels_done", "seconds": time.perf_counter() - t0})
         check(not d1["device_tail"] and d1["device_tail_chunks"] == 0,
@@ -1524,16 +1696,21 @@ def main() -> int:
               "d2: the E. coli cell did not switch to the device tail")
         check(d4["backtrack_max_width"] > 32768,
               f"d4: widest backtrack {d4['backtrack_max_width']} <= 32768")
-        fill_only = ("d1", "ava_quality", "dtw", "rmq", "bw_long")
+        fill_only = ("d1", "ava_tails", "ava_quality", "dtw", "rmq", "bw_long")
         for name, n in (("fixture", runs["fixture"][1]), ("d2", n2), ("d4", n4),
                         ("dist", runs["dist"][1]), ("pipeline", runs["pipeline"][1]),
-                        ("ava", runs["ava"][1]), ("ava_tails", runs["ava_tails"][1]),
+                        ("ava", runs["ava"][1]),
                         *((c, {"chain_fill": runs[c][1]["chain_fill"]}) for c in fill_only)):
             check(all(v > 0 for v in n.values()),
                   f"{name}: a kernel of its path was not launched: {n}")
         launches = {k: sum(n[k] for _, n in runs.values()) for k in counters}
         emit({"phase": "main_path_launches", "total": launches,
               **{name: n for name, (_, n) in runs.items()}})
+
+        # the plain versions' checks, run meanwhile in the host workers
+        t0 = time.perf_counter()
+        host.settle()
+        emit({"phase": "host_checks_done", "seconds_waited": time.perf_counter() - t0})
 
         k1 = timed["k1"]
         main_shape = next(r for r in k1 if r["preset"] == "sensitive" and r["n"] == 16384)
@@ -1605,6 +1782,9 @@ def main() -> int:
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    finally:
+        host.close()
+        work.cleanup()
     print(card)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -262,7 +262,10 @@ def compact_from_chain_stats(u_sc, u_cnt, u_ml, u_bl, u_lo, u_hi, n_u, v, n_v,
     Returns (asc i32 [B, p_out]: the first p_out carried anchors, chain-major,
     ascending within each chain, 0 past n_v; order i64 [B, K]; summaries
     i32 [B, K, 10]), the same as compact_batch's (asc[:, :p_out], order,
-    summaries) on the same chains."""
+    summaries) on the same chains, but for the summary rows past n_u: those
+    take columns 2-6 from anchor 0 (u_lo = u_hi = 0 there), as the reference
+    package's function of this name does; compact_batch takes them from
+    asc's slots n_v and n_v - 1."""
     b, n = v.shape
     k_cap = u_sc.shape[1]
     dev = v.device

@@ -13,6 +13,9 @@ them, and on the card they are its comparison only.
 `compact_batch` is compact_a (lchain.c:214-281) over the batch; the tail
 itself compacts from the chain statistics (chain/backtrack.py::
 compact_from_chain_stats), and compact_batch is what that is held against.
+`backtrack_compact`, the reference package's standalone entry, runs the
+kernel's route (chain_backtrack, then compact_from_chain_stats) and gives
+compact_batch's outputs.
 
 The state buffers are updated in place (scatter into fresh tensors): the
 JAX version rebuilds them each step.
@@ -300,3 +303,44 @@ def compact_batch(u_sc, u_cnt, n_u, v, n_v, s_key, s_tpos, s_qpos, *,
     summaries = summary_rows(order, u_sc, cnts, chain_valid, live, key0,
                              tpos0, qpos0, tposl, qposl, mlen, blen)
     return asc.to(torch.int32), order, summaries
+
+
+def backtrack_compact(f, p, n_anchors, s_key, s_tpos, s_qpos, *, min_cnt: int,
+                      min_sc: int, max_drop: int, k_cap: int, q_span: int):
+    """Backtrack and compaction in one call (the standalone entry; the tail
+    calls the two pieces itself, map/device_step.py::tail_finish).
+
+    f, p, s_key (u32 bits as i32), s_tpos, s_qpos i32 [B, N], n_anchors i32
+    [B].  Returns (summaries i32 [B, K, 10], n_u i32 [B], asc i32 [B, N],
+    n_v i32 [B], ovf i32 [B]), compact_batch's outputs on backtrack_batch's
+    chains.  The backtrack is chain/backtrack.py::chain_backtrack: its
+    kernel on CUDA tensors (1 <= N <= MAX_WIDTH), its plain version on CPU
+    tensors, an error on any other device; then compact_from_chain_stats
+    at p_out = N.  v and asc hold 0 past n_v.
+
+    The summary rows past n_u (no chain; sorted last, all alike) are
+    filled as compact_batch fills them, not as compact_from_chain_stats
+    does: columns 2-4 from asc's slot n_v, 5-6 from its slot n_v - 1
+    (clipped to the row)."""
+    from .backtrack import chain_backtrack, compact_from_chain_stats
+
+    (u_sc, u_cnt, n_u, v, n_v, ovf, u_ml, u_bl, u_lo, u_hi) = chain_backtrack(
+        f, p, n_anchors, s_tpos, s_qpos, min_cnt=min_cnt, min_sc=min_sc,
+        max_drop=max_drop, k_cap=k_cap, q_span=q_span,
+    )
+    n = f.shape[1]
+    asc, _, summaries = compact_from_chain_stats(
+        u_sc, u_cnt, u_ml, u_bl, u_lo, u_hi, n_u, v, n_v, s_key, s_tpos,
+        s_qpos, p_out=n,
+    )
+
+    def at(plane, slot):
+        a = torch.gather(asc.long(), 1, slot.long().clamp(0, n - 1)[:, None])
+        return torch.gather(plane, 1, a)[:, 0]
+
+    empty = torch.stack([at(s_key, n_v), at(s_tpos, n_v), at(s_qpos, n_v),
+                         at(s_tpos, n_v - 1), at(s_qpos, n_v - 1)], dim=1)
+    dead = torch.arange(k_cap, device=f.device)[None, :] >= n_u[:, None]
+    summaries[:, :, 2:7] = torch.where(dead[:, :, None], empty[:, None, :],
+                                       summaries[:, :, 2:7])
+    return summaries, n_u, asc, n_v, ovf

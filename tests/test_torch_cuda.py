@@ -16,7 +16,9 @@ from rawhash_tpu_torch.chain.backtrack import (  # noqa: E402
     DEPTH, MAX_WIDTH, SMEM_MAX, backtrack_launch, candidate_order,
     chain_backtrack, launch_depth, shared_bytes,
 )
-from rawhash_tpu_torch.chain.backtrack_device import backtrack_plain  # noqa: E402
+from rawhash_tpu_torch.chain.backtrack_device import (  # noqa: E402
+    backtrack_compact, backtrack_plain,
+)
 from rawhash_tpu_torch.chain.device import chain_fill_batch  # noqa: E402
 from rawhash_tpu_torch.chain.fill import MAX_ITER_CAP, chain_fill  # noqa: E402
 from rawhash_tpu_torch.map.engine import fill_params  # noqa: E402
@@ -136,6 +138,26 @@ def test_chain_backtrack_kernel_matches_plain(cuda_device, n, k_cap):
     assert int(got[2].min()) > 0
     if k_cap < 10:
         assert int(got[5].min()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4096, 33024])
+def test_backtrack_compact_on_the_card_matches_cpu(cuda_device, n):
+    """The standalone backtrack + compaction: its kernel route (one launch
+    of chain_backtrack, K2's widths and past 32768 K3's) against its CPU
+    route on the same inputs, every output whole, bit for bit."""
+    f, p, n_anchors, tpos, qpos = random_chains(n, 8, n, min(120, n // 4))
+    key = np.random.default_rng(n).integers(-2**31, 2**31, (8, n)).astype(np.int32)
+    host = [torch.from_numpy(x) for x in (f, p, n_anchors, key, tpos, qpos)]
+    before = chain_backtrack.launches
+    got = backtrack_compact(*(t.to(cuda_device) for t in host), **BT, k_cap=64)
+    torch.cuda.synchronize()
+    assert chain_backtrack.launches == before + 1
+    want = backtrack_compact(*host, **BT, k_cap=64)
+    assert chain_backtrack.launches == before + 1
+    for a, c in zip(want, got):
+        assert torch.equal(a, c.cpu())
+    assert int(want[1].min()) > 0
 
 
 def staging_threshold() -> int:
