@@ -22,7 +22,19 @@ Phases, each printed as one JSON line and each fatal on failure:
                claim steps, serial_steps_max) and the bound from it; at
                256 x 16384 the kernel at each staging depth, checked and
                timed in turns
-  4. loops     time the plain stages' stepped loops (_gen_peaks, _diff_filter)
+  4. event_kernels the events and sketch kernels (the peak detector
+               csrc/events_peaks.cu, the ordered prefix sums and sums
+               csrc/ordered_scan.cu, the diff filter csrc/diff_filter.cu)
+               on the inputs one events+sketch call on the card gives them,
+               256 reads at the viral and sensitive (4000 samples, 768
+               events) and ava (28672, 16384) shapes: each call held bit
+               for bit against its plain version on the card, with no sync
+               in the kernel route; kernel timed (median of 7), the plain
+               version once, torch.cumsum / torch.sum as the library's
+               yardstick, each beside its bound (the serial scans' critical
+               paths at latencies measured here); then the stage's torch
+               ops at L = 4000 and 8000, which must be equal (no op a
+               position or an event), with no sync at either
   5. k4        the fill-loop probe (a serial ring's floor): the card's
                latencies (a dependent VIADDMNMX, REDUX, 5-round shuffle max;
                the int32 rate on every SM); kernel vs the plain probe bit
@@ -128,22 +140,25 @@ unless it says otherwise; the fixture's CLI also maps at --batch-reads 2
 (three batches in flight), PAF columns 1-12 equal to the one-batch run's.
 Phases 6-9, 12-15, 16 and pipeline (not the *_kernels checks) are the main-path run:
 each resets the kernels' launch counters just before it and reads them
-just after; every kernel of its path must have launched in it (ava's
-and dist's: the fill and the backtrack; ava_tails, on the host tail: the
-fill).  Phases 7-9, 14 and 15 need >= 95% of reads mapped at accuracy
+just after; every kernel of its path must have launched in it: the
+events and sketch kernels and the fill in every run, the backtrack too
+in those that take the device tail (all but d1, ava_tails, ava_quality,
+dtw, rmq and bw_long).  Phases 7-9, 14 and 15 need >= 95% of reads mapped at accuracy
 >= 0.95 (strand right, mapped target interval inside the read's true
 interval +/- 200).
 The plain versions that run on the host CPU (the backtrack on CPU copies,
 the fill of d4's and ava's held rows, backtrack_compact's CPU route), the
 fixture's --device cpu runs and the ava cell's index build go to two
-worker processes (one thread and one core each, at a lower priority) and
-run beside the card's phases; each check is made when its result is back,
+worker processes (one thread and one core each, at a lower priority;
+`--host-workers N` sets how many, 0 runs each in turn on the calling
+thread) and run beside the card's phases; each check is made when its result is back,
 all of them before the kernels line, and a phase whose check waits emits
 its line then.
 The line before the card's line lists every kernel with its launches, error
 and times beside its bound (rawhash_tpu_torch/profiling/bounds.py: bytes,
-fp32, int32 and conversions each at the H100's own rate, and for K4 its
-critical path at the card's measured latencies, the largest time);
+fp32, int32 and conversions each at the H100's own rate, and for K4, the
+peak detector and the diff filter their critical paths at the card's
+measured latencies, the largest time);
 the last line is {"ok": true, "device": ...}.
 Needs a CUDA device; exits non-zero without one.
 """
@@ -227,15 +242,23 @@ class HostWorkers:
         import multiprocessing
         from concurrent.futures import ProcessPoolExecutor
 
-        cores = sorted(os.sched_getaffinity(0))
-        self.pool = ProcessPoolExecutor(
-            workers, mp_context=multiprocessing.get_context("spawn"),
-            initializer=host_worker_init,
-            initargs=(threads, set(cores[-workers * threads:])))
+        self.pool = None  # no workers: each fn runs at once, on the calling thread
+        if workers:
+            cores = sorted(os.sched_getaffinity(0))
+            self.pool = ProcessPoolExecutor(
+                workers, mp_context=multiprocessing.get_context("spawn"),
+                initializer=host_worker_init,
+                initargs=(threads, set(cores[-workers * threads:])))
         self.pending = []
 
     def submit(self, fn, *args, then=None):
-        fut = self.pool.submit(fn, *args)
+        from concurrent.futures import Future
+
+        if self.pool is None:
+            fut = Future()
+            fut.set_result(fn(*args))
+        else:
+            fut = self.pool.submit(fn, *args)
         if then is not None:
             self.pending.append((fut, then))
         return fut
@@ -250,7 +273,8 @@ class HostWorkers:
             then(None if fut is None else fut.result())
 
     def close(self) -> None:
-        self.pool.shutdown(wait=True, cancel_futures=True)
+        if self.pool is not None:
+            self.pool.shutdown(wait=True, cancel_futures=True)
 
 
 def host_worker_init(threads: int, cores: set) -> None:
@@ -326,6 +350,9 @@ def spy(mod, name, record):
         with _SPY_LOCK:
             record(name, fn, a, k)
         return fn(*a, **k)
+    # the same attributes: a kernel wrapper that counts its launches on its
+    # module's name for it counts them on the original
+    wrapper.__dict__ = fn.__dict__
     setattr(mod, name, wrapper)
     return fn
 
@@ -729,47 +756,181 @@ def phase_fill_warps(torch, dev, fills) -> list:
     return results
 
 
-def phase_loops(torch, dev) -> dict:
-    """Time the two stepped loops of the plain stages, the candidates for the
-    next kernels, at the main path's shapes (256 reads, one 4000-sample
-    chunk, viral preset): the event detector's _gen_peaks and the sketch's
-    _diff_filter.  Their arguments are caught from one events+sketch call."""
+# the events and sketch kernels: name, source, and what each replaces in the
+# JAX package (a lax.scan, or jnp.cumsum / jnp.sum in XLA's CPU order,
+# inside its jitted events and sketch programs)
+EVENT_KERNEL_ROWS = (
+    ("gen_peaks", "rawhash_tpu_torch/csrc/events_peaks.cu", "rawhash_tpu/signal/events.py:145"),
+    ("ordered_cumsum", "rawhash_tpu_torch/csrc/ordered_scan.cu",
+     "rawhash_tpu/signal/events.py:319"),
+    ("ordered_sum", "rawhash_tpu_torch/csrc/ordered_scan.cu",
+     "rawhash_tpu/signal/events.py:307"),
+    ("diff_filter", "rawhash_tpu_torch/csrc/diff_filter.cu", "rawhash_tpu/sketch/device.py:22"),
+)
+# the events and sketch kernels' shapes on the main path: (preset, chunk
+# length, events a chunk), 256 reads; ava's chunk is a whole 3000-base read
+# (28672 samples) and its events cap 16384 (map/engine.py::_caps)
+EVENT_SHAPES = {"viral": ("viral", 4000, 768), "sensitive": ("sensitive", 4000, 768),
+                "ava": ("ava", 28672, 16384)}
+
+
+def event_kernels():
+    """The events and sketch stage's kernel wrappers by name (each with its
+    `launches` counter)."""
     from rawhash_tpu_torch.signal import events as ev
     from rawhash_tpu_torch.sketch import device as sk
+
+    return {"gen_peaks": ev._gen_peaks, "ordered_cumsum": ev.ordered_cumsum,
+            "ordered_sum": ev.ordered_sum, "diff_filter": sk._diff_filter}
+
+
+def stage_inputs(torch, dev, b, l, seed) -> tuple:
+    """(sig, slen) of one chunk of b nanopore-like reads of l samples on dev."""
+    from rawhash_tpu_torch.synthetic import signal_chunk
+
+    sig = torch.from_numpy(signal_chunk(np.random.default_rng(seed), b, l)).to(dev)
+    return sig, torch.full((b,), l, dtype=torch.int32, device=dev)
+
+
+def events_stage(sig, slen, preset, e_cap):
+    """The events and sketch stage on one chunk, as the engine's step runs
+    it; returns its outputs."""
+    from rawhash_tpu_torch.map.device_step import events_and_sketch
+    from rawhash_tpu_torch.signal.events import NormCarry
     from rawhash_tpu_torch.synthetic import options
 
-    io, mo = options("viral")
-    rng = np.random.default_rng(3)
-    b, l = 256, mo.chunk_size
-    levels = rng.normal(90.0, 12.0, size=(b, l // 9 + 1))
-    sig = np.repeat(levels, 9, axis=1)[:, :l] + rng.normal(0, 1.0, (b, l))
-    sig = torch.from_numpy(sig.astype(np.float16)).to(dev).to(torch.float32)
-    slen = torch.full((b,), l, dtype=torch.int32, device=dev)
-    caught = {}
+    io, mo = options(preset)
+    return events_and_sketch(
+        sig, slen, NormCarry.zeros(sig.shape[0], sig.device),
+        window_length1=mo.window_length1, window_length2=mo.window_length2,
+        threshold1=mo.threshold1, threshold2=mo.threshold2,
+        peak_height=mo.peak_height, e_cap=e_cap, min_events=mo.min_events,
+        diff=io.diff, w=io.w, e=io.e, q=io.q, k=io.k, fine_min=io.fine_min,
+        fine_max=io.fine_max, fine_range=io.fine_range)
 
-    def keep(name, fn, a, k):
-        caught[name] = (fn, a, k)
 
-    originals = {(ev, "_gen_peaks"): spy(ev, "_gen_peaks", keep),
-                 (sk, "_diff_filter"): spy(sk, "_diff_filter", keep)}
+def stage_ops(torch, dev, l) -> tuple:
+    """(torch ops dispatched, syncs) of the events and sketch stage on one
+    chunk of 64 viral reads of l samples already on the card; a sync is a
+    call that waits for the card (torch.cuda's sync debug mode warns on
+    each)."""
+    import warnings
+
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    sig, slen = stage_inputs(torch, dev, 64, l, l)
+    events_stage(sig, slen, "viral", 768)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
     try:
-        events, n_ev, _ = ev.detect_events_batch(
-            sig, slen, ev.NormCarry.zeros(b, dev),
-            window_length1=mo.window_length1, window_length2=mo.window_length2,
-            threshold1=mo.threshold1, threshold2=mo.threshold2,
-            peak_height=mo.peak_height, e_cap=mo.max_events_per_chunk,
-        )
-        sk.sketch_batch(events, n_ev, diff=io.diff, w=io.w, e=io.e, q=io.q,
-                        k=io.k, fine_min=io.fine_min, fine_max=io.fine_max,
-                        fine_range=io.fine_range)
+        with warnings.catch_warnings(record=True) as caught, Count() as count:
+            warnings.simplefilter("always")
+            events_stage(sig, slen, "viral", 768)
     finally:
-        for (mod, name), fn in originals.items():
-            setattr(mod, name, fn)
-    out = {"b": b, "l": l, "e_cap": mo.max_events_per_chunk,
-           "mean_events": float(n_ev.float().mean())}
-    for name, (fn, a, k) in caught.items():
-        out[f"{name}_ms"] = cuda_ms(torch, lambda: fn(*a, **k), 1)
-    emit({"phase": "loops", **out})
+        torch.cuda.set_sync_debug_mode("default")
+    return count.n, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def phase_event_kernels(torch, dev) -> dict:
+    """The events and sketch kernels at the main path's shapes (EVENT_SHAPES,
+    256 reads of nanopore-like signal): each kernel's inputs are caught from
+    one events+sketch call on the card, then each kernel is held against its
+    plain version on the card on the same inputs, bit for bit (the peak
+    detector, the diff filter and all five ordered sums of the chunk), with
+    no sync in the kernel routes; the kernel timed (median of 7), the plain
+    version once, one PyTorch call for the same sum (torch.cumsum,
+    torch.sum) as the library's yardstick, each beside its bound (the
+    serial scans' critical paths at the latencies the card measures here);
+    and the stage's torch ops at L = 4000 and 8000, which must be equal,
+    with no sync in the stage at either."""
+    from rawhash_tpu_torch.profiling import bounds
+    from rawhash_tpu_torch.profiling.fill_loop_overhead import measure_latencies
+    from rawhash_tpu_torch.signal import events as ev
+    from rawhash_tpu_torch.sketch import device as sk
+
+    lat = measure_latencies()
+    check(lat["viaddmnmx"] > 0, f"event_kernels: the latency did not measure: {lat}")
+    plain = {"gen_peaks": ev._gen_peaks_plain, "ordered_cumsum": ev.ordered_cumsum_plain,
+             "ordered_sum": ev.ordered_sum_plain, "diff_filter": sk._diff_filter_plain}
+    library = {"ordered_cumsum": lambda x: torch.cumsum(x, dim=1),
+               "ordered_sum": lambda x: torch.sum(x, dim=1)}
+    out = {"latencies": lat, "shapes": {}}
+    for shape, (preset, l, e_cap) in EVENT_SHAPES.items():
+        b = 256
+        calls = []
+        wrappers = event_kernels()
+        names = {fn.__name__: name for name, fn in wrappers.items()}
+        originals = {(sys.modules[fn.__module__], fn.__name__): spy(
+            sys.modules[fn.__module__], fn.__name__,
+            lambda attr, _, a, k: calls.append((names[attr], a, k)))
+            for fn in wrappers.values()}
+        sig, slen = stage_inputs(torch, dev, b, l, 3)
+        try:
+            stage = events_stage(sig, slen, preset, e_cap)
+        finally:
+            put_back(originals)
+        n_ev = stage[1]
+        rows = []
+        for name, a, k in calls:
+            fn = wrappers[name]
+            before = fn.launches
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")  # a sync raises
+            try:
+                got = fn(*a, **k)
+            except RuntimeError as e:
+                raise Failed(f"event_kernels {shape}: {name}'s kernel route: {e}") from e
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            check(fn.launches == before + 1, f"event_kernels {shape}: {name} did not "
+                  "launch its kernel")
+            want, plain_ms = timed_once(torch, lambda: plain[name](*a, **k))
+            if got.dtype == torch.bool:
+                err = int((got != want).sum())
+            elif got.dtype == torch.int32:
+                err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
+            else:
+                err = float((got - want).abs().max()) if got.numel() else 0.0
+            check(torch.equal(got, want), f"event_kernels {shape}: {name} disagrees "
+                  f"with its plain version (max abs err {err})")
+            ms = cuda_ms(torch, lambda: fn(*a, **k), 7)
+            row = dict(kernel=name, shape=list(a[0].shape), max_abs_err=err, ms=ms,
+                       plain_ms=plain_ms, library_ms=None)
+            if name in library:
+                x = a[0]
+                library[name](x)
+                row["library_ms"] = cuda_ms(torch, lambda: library[name](x), 7)
+                row.update(bounds.scan_bound(*x.shape, name.split("_")[1]))
+            elif name == "gen_peaks":
+                n_live = int(a[2].clamp(0, l).max())
+                row.update(n_live=n_live, **bounds.peaks_bound(b, l, n_live, lat))
+            else:
+                n_live = int(a[1].clamp(0, a[0].shape[1]).max())
+                row.update(n_live=n_live, **bounds.diff_filter_bound(b, a[0].shape[1],
+                                                                      n_live, lat))
+            rows.append(row)
+        check(sorted(r["kernel"] for r in rows) == sorted(
+            ["gen_peaks", "diff_filter"] + ["ordered_cumsum"] * 3 + ["ordered_sum"] * 2),
+            f"event_kernels {shape}: unexpected calls {[r['kernel'] for r in rows]}")
+        line = dict(shape=shape, preset=preset, b=b, l=l, e_cap=e_cap,
+                    mean_events=float(n_ev.float().mean()), calls=rows)
+        emit({"phase": "event_kernels", **line})
+        out["shapes"][shape] = line
+    (ops4, syncs4), (ops8, syncs8) = (stage_ops(torch, dev, l) for l in (4000, 8000))
+    out["stage_ops"] = {"4000": ops4, "8000": ops8, "syncs_4000": syncs4,
+                        "syncs_8000": syncs8}
+    emit({"phase": "event_stage_ops", **out["stage_ops"]})
+    check(ops4 == ops8, f"event_kernels: the events and sketch stage dispatched {ops4} "
+          f"torch ops at L = 4000 and {ops8} at L = 8000")
+    check(syncs4 == syncs8 == 0, f"event_kernels: the events and sketch stage waited "
+          f"for the card {syncs4} times at L = 4000, {syncs8} at L = 8000")
     return out
 
 
@@ -1564,7 +1725,15 @@ def main_path(name, fn, counters) -> tuple:
     return out, launches
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Smoke run of the port on one NVIDIA GPU.")
+    ap.add_argument("--host-workers", type=int, default=2,
+                    help="worker processes for the plain versions on the host CPU "
+                         "(0: each runs in turn on the calling thread, so no host "
+                         "work runs beside the card's phases)")
+    args = ap.parse_args(argv)
     try:
         import torch
     except ImportError:
@@ -1586,7 +1755,7 @@ def main() -> int:
     t_all = time.perf_counter()
     emit({"phase": "card", "nvidia_smi": card,
           "torch": torch.__version__, "cuda": torch.version.cuda})
-    host = HostWorkers(workers=2, threads=1)
+    host = HostWorkers(workers=args.host_workers, threads=1)
     ava_inputs = host.submit(ava_workload)  # ready by the ava phase
     work = tempfile.TemporaryDirectory()
     fixture_dir = Path(work.name)
@@ -1610,12 +1779,13 @@ def main() -> int:
         timed = {}
         for name, fn in (("k1", phase_k1),
                          ("backtrack", lambda torch, dev: phase_backtrack(torch, dev, host)),
-                         ("loops", phase_loops), ("k4", phase_k4)):
+                         ("event_kernels", phase_event_kernels), ("k4", phase_k4)):
             t0 = time.perf_counter()
             timed[name] = fn(torch, dev)
             emit({"phase": f"{name}_done", "seconds": time.perf_counter() - t0})
 
-        counters = {"chain_fill": chain_fill, "chain_backtrack": chain_backtrack}
+        counters = {"chain_fill": chain_fill, "chain_backtrack": chain_backtrack,
+                    **event_kernels()}
         runs = {}
         runs["fixture"] = main_path(
             "fixture", lambda: phase_fixture(fixture_dir, host), counters)
@@ -1631,7 +1801,7 @@ def main() -> int:
                 name, lambda: phase_deployment(torch, dev, name, *cell,
                                                caught[name], keep=kept.get(name)),
                 counters)
-        (d1, _), (d2, n2), (d4, n4) = (runs[c] for c in cells)
+        (d1, _), (d2, _), (d4, _) = (runs[c] for c in cells)
         # the kernels on each device-tail cell's own widest tail call: D2's
         # backtrack held on all its rows, D4's fill and backtrack on 8
         for name, rows, fill in (("d2", None, False), ("d4", 8, True)):
@@ -1696,12 +1866,13 @@ def main() -> int:
               "d2: the E. coli cell did not switch to the device tail")
         check(d4["backtrack_max_width"] > 32768,
               f"d4: widest backtrack {d4['backtrack_max_width']} <= 32768")
-        fill_only = ("d1", "ava_tails", "ava_quality", "dtw", "rmq", "bw_long")
-        for name, n in (("fixture", runs["fixture"][1]), ("d2", n2), ("d4", n4),
-                        ("dist", runs["dist"][1]), ("pipeline", runs["pipeline"][1]),
-                        ("ava", runs["ava"][1]),
-                        *((c, {"chain_fill": runs[c][1]["chain_fill"]}) for c in fill_only)):
-            check(all(v > 0 for v in n.values()),
+        # every main-path run maps on the card: the events and sketch
+        # kernels and the fill in all, the backtrack on the device tail
+        host_tail = ("d1", "ava_tails", "ava_quality", "dtw", "rmq", "bw_long")
+        for name, (_, n) in runs.items():
+            path = {k: v for k, v in n.items()
+                    if not (k == "chain_backtrack" and name in host_tail)}
+            check(all(v > 0 for v in path.values()),
                   f"{name}: a kernel of its path was not launched: {n}")
         launches = {k: sum(n[k] for _, n in runs.values()) for k in counters}
         emit({"phase": "main_path_launches", "total": launches,
@@ -1772,6 +1943,25 @@ def main() -> int:
             "bound_ms": k4_row["bound_ms"], "bound_by": bound_by(k4_row),
             "library_ms": None,
         })
+        # the events and sketch kernels (the JAX package's scans and ordered
+        # sums, not Pallas kernels): the row at the viral chunk's first call,
+        # the same at the sensitive and ava shapes beside it
+        shapes = timed["event_kernels"]["shapes"]
+        for name, source, replaces in EVENT_KERNEL_ROWS:
+            calls = {c: [r for r in line["calls"] if r["kernel"] == name]
+                     for c, line in shapes.items()}
+            row = calls["viral"][0]
+            kernels.append({
+                "name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches[name],
+                "max_abs_err": max(r["max_abs_err"] for c in calls.values() for r in c),
+                "ms": row["ms"], "plain_ms": row["plain_ms"],
+                "bound_ms": row["bound_ms"], "bound_by": bound_by(row),
+                "library_ms": row["library_ms"],
+                **{c: {k: calls[c][0][k] for k in ("shape", "ms", "plain_ms", "bound_ms",
+                                                   "library_ms")}
+                   for c in ("sensitive", "ava")},
+            })
         emit({"kernels": kernels,
               **{f"{c}_bp_per_s": runs[c][0]["bp_per_s"]
                  for c in (*cells, "ava", "dtw", "rmq", "bw_long")},

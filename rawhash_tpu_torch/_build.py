@@ -7,9 +7,13 @@ built at first use and cached by a hash of the sources and flags under
 all started together, then one link.  Concurrent builds each write private
 temp files and rename the library into place.
 
-`load_host_library` builds the backtrack's header for the host with g++
-(`csrc/chain_backtrack_host.cpp`): the tests and the backtrack's bound run
-the kernel's per-read logic from it.
+`load_host_library(name)` builds a kernel's header for the host with g++
+(`csrc/<name>_host.cpp`, which includes `csrc/<name>.cuh`): the tests, and
+the backtrack's bound, run the kernel's per-read logic from it.
+
+`kernel(name, argtypes)` is the library's C entry `name`, which launches on
+the stream it is given and returns a CUDA error code; `check_operand` is
+the wrappers' check of an operand's type, shape, device and layout.
 """
 
 from __future__ import annotations
@@ -33,10 +37,12 @@ NVCC_FLAGS = [
 
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
-_HOST_LIB: ctypes.CDLL | None = None
-# the host build of the backtrack's header (csrc/chain_backtrack_host.cpp)
-HOST_SRC = CSRC / "chain_backtrack_host.cpp"
-HOST_FLAGS = ["-O2", "-std=c++17", "-shared", "-fPIC", f"-I{CSRC}"]
+_HOST_LIBS: dict = {}
+_FNS: dict = {}
+# host builds of the kernels' headers; -ffp-contract=off keeps every f32
+# multiply and add apart, as --fmad=false does on the card
+HOST_FLAGS = ["-O2", "-std=c++17", "-shared", "-fPIC", "-ffp-contract=off",
+              f"-I{CSRC}"]
 
 
 def nvcc_path() -> str:
@@ -112,25 +118,55 @@ def load_library() -> ctypes.CDLL:
         return _LIB
 
 
-def load_host_library() -> ctypes.CDLL:
-    """The backtrack's header built for the host with g++
-    (csrc/chain_backtrack_host.cpp: rh_bt_serial, rh_bt_rounds), cached by
-    a hash of its sources under build/rawhash_tpu_torch/host, loaded once
-    per process."""
-    global _HOST_LIB
+def load_host_library(name: str) -> ctypes.CDLL:
+    """A kernel's header built for the host with g++: csrc/<name>_host.cpp
+    (chain_backtrack: rh_bt_serial, rh_bt_rounds; events_peaks:
+    rh_peaks_host; ordered_scan: rh_cumsum_host, rh_sum_host; diff_filter:
+    rh_diff_filter_host; fill_loop_probe: rh_probe_serial, rh_probe_warp,
+    rh_probe_chain1), cached by a hash of its sources under
+    build/rawhash_tpu_torch/host, loaded once per process."""
     with _LOCK:
-        if _HOST_LIB is None:
+        if name not in _HOST_LIBS:
+            srcs = (CSRC / f"{name}_host.cpp", CSRC / f"{name}.cuh")
             h = hashlib.sha256(" ".join(HOST_FLAGS[:-1]).encode())
-            for src in (HOST_SRC, CSRC / "chain_backtrack.cuh"):
+            for src in srcs:
                 h.update(src.read_bytes())
-            so = BUILD_DIR / "host" / f"chain_backtrack_host_{h.hexdigest()[:16]}.so"
+            so = BUILD_DIR / "host" / f"{name}_host_{h.hexdigest()[:16]}.so"
             if not so.exists():
                 gxx = shutil.which("g++")
                 if gxx is None:
-                    raise RuntimeError("g++ not found: the backtrack's host build needs it")
+                    raise RuntimeError(f"g++ not found: the host build of {name} needs it")
                 so.parent.mkdir(parents=True, exist_ok=True)
                 tmp = so.with_name(f"{so.stem}.tmp{os.getpid()}.so")
-                _run([[gxx, *HOST_FLAGS, str(HOST_SRC), "-o", str(tmp)]])
+                _run([[gxx, *HOST_FLAGS, str(srcs[0]), "-o", str(tmp)]])
                 os.replace(tmp, so)
-            _HOST_LIB = ctypes.CDLL(str(so))
-        return _HOST_LIB
+            _HOST_LIBS[name] = ctypes.CDLL(str(so))
+        return _HOST_LIBS[name]
+
+
+def kernel(name: str, argtypes: list):
+    """The library's C entry `name` (it returns a CUDA error code), with its
+    argument types set, once per process."""
+    with _LOCK:
+        fn = _FNS.get(name)
+    if fn is None:
+        fn = getattr(load_library(), name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+        with _LOCK:
+            fn = _FNS.setdefault(name, fn)
+    return fn
+
+
+def check_operand(fn: str, name: str, t, dtype, shape: tuple, device, *,
+                  strided_rows: bool = False) -> None:
+    """Raise ValueError unless tensor t has this dtype and shape, lies on
+    device and is C-contiguous (with strided_rows, each row contiguous)."""
+    if t.device != device or t.dtype != dtype or tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{fn}: {name} must be {dtype} {tuple(shape)} on {device}, "
+                         f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if strided_rows:
+        if t.shape[-1] > 1 and t.stride(-1) != 1:
+            raise ValueError(f"{fn}: {name} must have contiguous rows")
+    elif not t.is_contiguous():
+        raise ValueError(f"{fn}: {name} must be contiguous")

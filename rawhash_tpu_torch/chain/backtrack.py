@@ -28,7 +28,7 @@ import threading
 import numpy as np
 import torch
 
-from .._build import load_host_library, load_library
+from .._build import check_operand, load_host_library, load_library
 from .backtrack_device import (
     INT32_MIN, backtrack_plain, candidates, chain_order, summary_rows,
 )
@@ -189,13 +189,7 @@ def chain_backtrack(
     for name, t, shape in (("f", f, (b, n)), ("p", p, (b, n)),
                            ("n_anchors", n_anchors, (b,)),
                            ("tpos", tpos, (b, n)), ("qpos", qpos, (b, n))):
-        if t.device != dev or t.dtype != torch.int32 or tuple(t.shape) != shape:
-            raise ValueError(
-                f"chain_backtrack: {name} must be int32 {shape} on {dev}, got "
-                f"{t.dtype} {tuple(t.shape)} on {t.device}"
-            )
-        if not t.is_contiguous():
-            raise ValueError(f"chain_backtrack: {name} must be contiguous")
+        check_operand("chain_backtrack", name, t, torch.int32, shape, dev)
     if not 1 <= n <= MAX_WIDTH:
         raise ValueError(f"chain_backtrack: width {n} not in [1, {MAX_WIDTH}]")
     if k_cap < 1:
@@ -232,7 +226,7 @@ def backtrack_host_serial(f, p, n_anchors, tpos, qpos, *, min_cnt: int,
     time, on the full candidate order.  Returns (the ten outputs as numpy
     int32 arrays, in chain_backtrack's order; work int64 [B, 6]: each row's
     candidates, skipped, walk steps, claim steps, kept chains, v writes)."""
-    lib = load_host_library()
+    lib = load_host_library("chain_backtrack")
     f, p, tpos, qpos = map(host_array, (f, p, tpos, qpos))
     n_anchors = torch.from_numpy(host_array(n_anchors))
     z_f, z_idx = map(host_array, candidates(torch.from_numpy(f), n_anchors))

@@ -18,7 +18,7 @@ import threading
 
 import torch
 
-from .._build import load_library
+from .._build import check_operand, load_library
 from ..signal.events import f32
 from .device import chain_fill_batch
 
@@ -96,13 +96,7 @@ def chain_fill(
     b, n = key.shape
     for name, t, shape in (("key", key, (b, n)), ("tpos", tpos, (b, n)),
                            ("qpos", qpos, (b, n)), ("n_anchors", n_anchors, (b,))):
-        if t.device != dev or t.dtype != torch.int32 or tuple(t.shape) != shape:
-            raise ValueError(
-                f"chain_fill: {name} must be int32 {shape} on {dev}, got "
-                f"{t.dtype} {tuple(t.shape)} on {t.device}"
-            )
-        if not t.is_contiguous():
-            raise ValueError(f"chain_fill: {name} must be contiguous")
+        check_operand("chain_fill", name, t, torch.int32, shape, dev)
     if max_iter < 1:
         raise ValueError("chain_fill: max_iter must be at least 1")
     f = torch.empty((b, n), dtype=torch.int32, device=dev)

@@ -148,12 +148,18 @@ def tail_switch_anchors(index: RawIndex, mopt: MapOptions) -> int:
     the reference engine's 8 MiB per-chunk budget for the host tail's
     anchor fetch at its packed width of 2 * (key_words + 3) bytes per
     anchor (engine.py:143-152, 212-221), so both engines switch at the
-    same watermark."""
+    same watermark.  As there, a non-empty RAWHASH_TPU_TAIL_SWITCH_ANCHORS
+    is the watermark, and RAWHASH_TPU_TAIL_SWITCH_BYTES replaces the 8 MiB
+    budget."""
+    anchors = os.environ.get("RAWHASH_TPU_TAIL_SWITCH_ANCHORS")
+    if anchors:
+        return int(anchors)
+    budget = int(os.environ.get("RAWHASH_TPU_TAIL_SWITCH_BYTES", str(8 << 20)))
     max_len = int(max(index.seq_lens)) if index.n_seq else 1
     tid_bits = (max(index.n_seq, 1) - 1).bit_length() if index.n_seq > 1 else 0
     total_bits = 1 + tid_bits + max(1, max_len.bit_length())
     key_words = 1 if total_bits <= 16 else 2 if total_bits <= 32 else 4
-    return max(512, (8 << 20) // (2 * (key_words + 3) * max(1, mopt.batch_reads)))
+    return max(512, budget // (2 * (key_words + 3) * max(1, mopt.batch_reads)))
 
 
 class MappingEngine:

@@ -22,7 +22,8 @@ The work is counted from the inputs of the call, not the most they could
 need: `fill_work` counts the (anchor, predecessor) pairs K1's function
 needs, by how far the per-slot score takes each; `backtrack_work` counts
 the candidate visits and walk steps the backtrack needs, by running its
-serial algorithm on the host.
+serial algorithm on the host; the peak detector's and the diff filter's
+critical paths run to the longest row's live positions or events.
 """
 
 from __future__ import annotations
@@ -236,3 +237,56 @@ def backtrack_bytes(work: dict, b: int) -> float:
     kept chain, three counts a read."""
     return (4.0 * work["live"] + 4.0 * work["p_reads"] + 8.0 * work["v_writes"]
             + 4.0 * b + 4.0 * work["v_writes"] + 24.0 * work["kept"] + 12.0 * b)
+
+
+# The dependent instructions a position or an event needs, one after the
+# other, in the serial scans (one thread a read), each priced at the
+# dependent-issue latency the card measured (`measure_latencies`'s
+# viaddmnmx: Hopper's integer and fp32 ALU instructions share that
+# latency).  Counted along the carried value of csrc/events_peaks.cuh's
+# long detector: the short detector's reset select, cur > val, the new
+# maximum's select, its drop (pv2 - cur), the drop test joined with the
+# valid flag, the next value's select.  Along csrc/diff_filter.cuh's last
+# kept value: v - last, the |.| >= diff test, the select.  Fewer than the
+# source has, so the bound stays a lower one.
+PEAKS_CHAIN = 6
+DIFF_CHAIN = 3
+
+
+def peaks_bound(b: int, l: int, n_live: int, lat: dict | None = None) -> dict:
+    """The peak detector's (K5) bound on [B, L] t-statistics: both read
+    once and two i32 emissions a position written (16 B L + 4 B bytes);
+    with the card's latencies, the critical path of the longest row's
+    n_live positions (the largest n_sig, clamped to L)."""
+    return bound(16.0 * b * l + 4.0 * b, critical_path=None if lat is None else
+                 n_live * PEAKS_CHAIN * lat["viaddmnmx"])
+
+
+def diff_filter_bound(b: int, e: int, n_live: int, lat: dict | None = None) -> dict:
+    """The diff filter's (K7) bound on [B, E] events: read once, one byte an
+    event written (5 B E + 4 B bytes); with the card's latencies, the
+    critical path of the longest row's n_live events (the largest n_ev,
+    clamped to E)."""
+    return bound(5.0 * b * e + 4.0 * b, critical_path=None if lat is None else
+                 n_live * DIFF_CHAIN * lat["viaddmnmx"])
+
+
+def scan_adds(n: int, kind: str) -> int:
+    """The f32 adds of one row's ordered prefix sum (kind "cumsum") or sum
+    ("sum") of n values, as csrc/ordered_scan.cuh makes them: the padding's
+    zeros included, every level."""
+    block = 16 if kind == "cumsum" else 32
+    sizes = [n]
+    while sizes[-1] > block:
+        sizes.append(-(-sizes[-1] // block))
+    adds = sum(block * s for s in sizes[1:]) + sizes[-1]
+    if kind == "cumsum":  # the down-sweep: a running sum and a carry a value
+        adds += 2 * sum(sizes[:-1])
+    return adds
+
+
+def scan_bound(b: int, l: int, kind: str) -> dict:
+    """The ordered prefix sum's or sum's (K6) bound on [B, L] f32: each row
+    read once and its sums written (4 B L, or 4 B), and its adds."""
+    out = 4.0 * b * (l if kind == "cumsum" else 1)
+    return bound(4.0 * b * l + out, fp32=float(b * scan_adds(l, kind)))

@@ -1,0 +1,275 @@
+"""This checkout's events and sketch stage, and its mapping, against another
+checkout's, in turns on one card.
+
+    git archive <commit> rawhash_tpu_torch | tar -x -C build/other
+    python -m rawhash_tpu_torch.profiling.compare_events build/other [WORKLOAD ...]
+
+Loads the other checkout's `rawhash_tpu_torch` under another name (it
+builds its own kernels under that checkout) and runs each workload with
+both, in turns (theirs, ours, ours, theirs, twice: four runs each), no
+other work beside them.  Prints the card's name and power limit, then one
+JSON line per workload (all of them, or those named):
+
+  events    one chunk of 256 nanopore-like viral reads of 4000 samples
+            through `events_and_sketch` (the events and sketch stage),
+            seconds on the host clock up to a sync of the card; the two
+            checkouts' outputs must be equal;
+  d1 d2 d4  chip_smoke.py's mapping cells (the same genomes, presets, reads
+            and --max-anchors: D1 viral 2 x 256 reads, D2 E. coli-sized 2 x
+            256, D4 100 Mbp 1 x 256), built once and mapped by a fresh
+            engine of each checkout a run: bp/s and the stage sums of each
+            run; the records must be equal;
+  fixture   the viral fixture (8 kb genome, 6 reads of 600 bases, seed 5,
+            --max-anchors 512) at two reads a batch, three batches, at
+            --pipeline-depth 1 and 3: seconds of each;
+  peaks     the peak detector's kernel (`_gen_peaks` on CUDA tensors) of
+            both checkouts, where the other has one, on the t-statistics of
+            256 reads at 4000 and 28672 positions: ms by CUDA events (the
+            median of 7 a run); the emissions must be equal;
+  busy      one D1 batch of this checkout under torch.profiler: the share of
+            the wall time in which the card ran a kernel (the union of the
+            kernels' intervals over the wall time).
+
+Each line carries every run's number, the medians and the spread (max -
+min).  It needs an NVIDIA GPU and exits non-zero without one.
+"""
+
+from __future__ import annotations
+
+import copy
+import gc
+import json
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from .. import synthetic
+from ..map import device_step, engine as eng_mod
+from ..signal import events as this_events
+from .compare_backtrack import OTHER, load_other
+from .fill_loop_overhead import card
+
+DEV = "cuda"
+EVENTS_B, EVENTS_L = 256, 4000  # the events workload's chunk
+PEAKS_L = (4000, 28672)  # the peaks workload's positions: viral's, ava's chunk
+ORDER = ("other", "this", "this", "other") * 2
+# chip_smoke.py's cells: genome length, preset, batches, read length,
+# --max-anchors, seed
+CELLS = {
+    "d1": (30_000, "viral", 2, 1200, 3072, 7),
+    "d2": (5_000_000, "sensitive", 2, 2500, 16384, 11),
+    "d4": (100_000_000, "sensitive", 1, 3000, 4096, 13),
+}
+
+
+def summary(runs: dict) -> dict:
+    return {who: {"runs": v, "median": float(np.median(v)),
+                  "spread": float(max(v) - min(v))} for who, v in runs.items()}
+
+
+def events_call(mod, sig, slen):
+    """events_and_sketch of a checkout's device_step on one viral chunk."""
+    io, mo = synthetic.options("viral")
+    return mod["step"].events_and_sketch(
+        sig, slen, mod["events"].NormCarry.zeros(sig.shape[0], sig.device),
+        window_length1=mo.window_length1, window_length2=mo.window_length2,
+        threshold1=mo.threshold1, threshold2=mo.threshold2,
+        peak_height=mo.peak_height, e_cap=mo.max_events_per_chunk,
+        min_events=mo.min_events, diff=io.diff, w=io.w, e=io.e, q=io.q, k=io.k,
+        fine_min=io.fine_min, fine_max=io.fine_max, fine_range=io.fine_range)
+
+
+def tensors(x) -> list:
+    """The tensors of nested tuples, in order."""
+    return [x] if isinstance(x, torch.Tensor) else [t for y in x for t in tensors(y)]
+
+
+def compare_events(mods) -> dict:
+    dev = torch.device(DEV)
+    b, l = EVENTS_B, EVENTS_L
+    sig = torch.from_numpy(synthetic.signal_chunk(np.random.default_rng(3), b, l)).to(dev)
+    slen = torch.full((b,), l, dtype=torch.int32, device=dev)
+    outs = {who: events_call(m, sig, slen) for who, m in mods.items()}
+    equal = all(torch.equal(a, c) for a, c in zip(tensors(outs["this"]),
+                                                   tensors(outs["other"])))
+    secs = {"this": [], "other": []}
+    for who in ORDER:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        events_call(mods[who], sig, slen)
+        torch.cuda.synchronize()
+        secs[who].append(time.perf_counter() - t0)
+    s = summary(secs)
+    return {"workload": "events", "b": b, "l": l, "equal": equal, "seconds": s,
+            "speedup": s["other"]["median"] / s["this"]["median"]}
+
+
+def records(results) -> list:
+    return [(r.name, [(m.ref_id, m.read_start, m.read_end, m.frag_start, m.frag_len,
+                       m.mapq, m.rev, m.mapped) for m in r.records]) for r in results]
+
+
+def map_once(engine_cls, index, mopt, batches, bases_of):
+    """(seconds, bp/s, stage sums, records) of one fresh engine's map."""
+    engine = engine_cls(index, copy.deepcopy(mopt), device=DEV)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = [r for batch in engine.map_stream(batches) for r in batch]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    stages = dict(engine.profiler.totals)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dt, bases_of(results) / dt, stages, records(results)
+
+
+def bases(mopt):
+    """Bases of signal a run consumed, as chip_smoke.py counts them."""
+    def count(results):
+        total = 0.0
+        for res in results:
+            tags = res.records[0].tags.split("\t")
+            ci = int(next(t[5:] for t in tags if t.startswith("ci:i:")))
+            total += ci * mopt.chunk_size / mopt.sample_per_base
+        return total
+    return count
+
+
+def compare_cell(name, mods) -> dict:
+    genome_len, preset, n_batches, read_len, max_anchors, seed = CELLS[name]
+    t0 = time.perf_counter()
+    index, mopt, reads = synthetic.deployment(genome_len, preset, n_batches * 256,
+                                              read_len, max_anchors, seed)
+    setup = time.perf_counter() - t0
+    batches = [[(n, s) for n, s, _, _ in reads[i:i + 256]]
+               for i in range(0, len(reads), 256)]
+    bps, stages, recs = {"this": [], "other": []}, {"this": [], "other": []}, {}
+    for who in ORDER:
+        _, r, st, rec = map_once(mods[who]["engine"], index, mopt, batches, bases(mopt))
+        bps[who].append(r)
+        stages[who].append(st)
+        recs.setdefault(who, rec)
+    s = summary(bps)
+    return {"workload": name, "preset": preset, "reads": len(reads), "setup_s": setup,
+            "records_equal": recs["this"] == recs["other"], "bp_per_s": s,
+            "speedup": s["this"]["median"] / s["other"]["median"], "stage_seconds": stages}
+
+
+def compare_fixture(mods) -> dict:
+    index, mopt, reads = synthetic.deployment(8000, "viral", 6, 600, 512, 5, batch_reads=2)
+    batches = [[(n, s) for n, s, _, _ in reads[i:i + 2]] for i in range(0, 6, 2)]
+    secs = {}
+    for depth in (1, 3):
+        mo = copy.deepcopy(mopt)
+        mo.pipeline_depth = depth
+        runs = {"this": [], "other": []}
+        for who in ORDER[:4]:
+            runs[who].append(map_once(mods[who]["engine"], index, mo, batches,
+                                      bases(mo))[0])
+        secs[f"depth{depth}"] = summary(runs)
+    return {"workload": "fixture", "batches": 3, "seconds": secs}
+
+
+def compare_peaks(mods) -> dict:
+    """The peak detector's kernel of both checkouts, in turns."""
+    from .compare_backtrack import cuda_ms
+
+    out = {"workload": "peaks", "equal": True, "shapes": {}}
+    if not hasattr(mods["other"]["events"]._gen_peaks, "launches"):
+        out["skipped"] = "the other checkout has no peak-detector kernel"
+        return out
+    prm = dict(t1=4.0, t2=3.5, w1=3, w2=9, peak_height=0.4)
+    for l in PEAKS_L:
+        rng = np.random.default_rng(l)
+        n_sig = np.full(256, l, np.int32)
+        args = [torch.from_numpy(x).to(DEV)
+                for x in (*synthetic.event_tstats(rng, 256, l, n_sig, 3, 9), n_sig)]
+        fns = {who: (lambda m=m: m["events"]._gen_peaks(*args, **prm))
+               for who, m in mods.items()}
+        out["equal"] &= torch.equal(fns["this"](), fns["other"]())
+        ms = {"this": [], "other": []}
+        for who in ORDER:
+            ms[who].append(cuda_ms(fns[who], 7))
+        s = summary(ms)
+        out["shapes"][str(l)] = {"ms": s,
+                                 "speedup": s["other"]["median"] / s["this"]["median"]}
+    return out
+
+
+def device_busy() -> dict:
+    """Busy share of the card over one D1 batch of this checkout."""
+    from torch.profiler import ProfilerActivity, profile
+
+    genome_len, preset, _, read_len, max_anchors, seed = CELLS["d1"]
+    index, mopt, reads = synthetic.deployment(genome_len, preset, 256, read_len,
+                                              max_anchors, seed)
+    batches = [[(n, s) for n, s, _, _ in reads]]
+    map_once(eng_mod.MappingEngine, index, mopt, batches, bases(mopt))  # warm-up
+    engine = eng_mod.MappingEngine(index, copy.deepcopy(mopt), device=DEV)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in engine.map_stream(batches):
+            pass
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, z in spans:
+        if z > end:
+            busy += z - max(a, end)
+            end = z
+    by_kernel = {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", 0.0)
+        if t:
+            by_kernel[e.key] = t
+    top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12])
+    return {"workload": "busy", "cell": "d1", "reads": 256, "wall_s": wall,
+            "device_events": len(spans), "busy_s": busy / 1e6,
+            "busy_share": busy / 1e6 / wall if spans else None,
+            "top_device_us": top}
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    names = ("events", *CELLS, "fixture", "peaks", "busy")
+    if not argv or any(a not in names for a in argv[1:]):
+        print("usage: python -m rawhash_tpu_torch.profiling.compare_events "
+              f"OTHER_CHECKOUT [{' '.join(names)}]", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("compare_events: needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    return run(Path(argv[0]), argv[1:] or names)
+
+
+def run(other: Path, names) -> int:
+    """The named workloads against the checkout at `other`; 0 if the
+    outputs and records were equal."""
+    load_other(other, "map.engine")
+    mods = {"this": {"step": device_step, "events": this_events,
+                     "engine": eng_mod.MappingEngine},
+            "other": {"step": sys.modules[f"{OTHER}.map.device_step"],
+                      "events": sys.modules[f"{OTHER}.signal.events"],
+                      "engine": sys.modules[f"{OTHER}.map.engine"].MappingEngine}}
+    workloads = {"events": lambda: compare_events(mods),
+                 **{c: (lambda c=c: compare_cell(c, mods)) for c in CELLS},
+                 "fixture": lambda: compare_fixture(mods),
+                 "peaks": lambda: compare_peaks(mods), "busy": device_busy}
+    print(card(), flush=True)
+    ok = True
+    for name in names:
+        row = workloads[name]()
+        print(json.dumps(row), flush=True)
+        ok &= row.get("equal", True) and row.get("records_equal", True)
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -11,18 +11,34 @@ Float sums follow the reference's summation order exactly (`ordered_sum`,
 package on the CPU and the same on every device, whatever order a library
 reduction would take.  The t-statistics can still differ from the JAX CPU
 build by an ulp or two, so events agree to ~1e-5, not bit for bit.
+
+The serial parts run as CUDA kernels on CUDA tensors, as the JAX package
+compiles them into its events program: the peak detector (`_gen_peaks`,
+csrc/events_peaks.cu) and the ordered sums (`ordered_cumsum`,
+`ordered_sum`, csrc/ordered_scan.cu).  On CPU tensors each runs its plain
+version (`*_plain`), which the kernel equals bit for bit.  Each wrapper
+counts its launches (`fn.launches`); none reads a value back to the host.
 """
 
 from __future__ import annotations
 
+import ctypes
+import threading
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from .._build import check_operand, kernel
+
 FLT_MIN = float(np.finfo(np.float32).tiny)
 FLT_MAX = float(np.finfo(np.float32).max)
 BIG_I32 = 0x7FFFFFFF
+
+# the wrappers' launch counters are added to from every thread that maps a
+# batch
+COUNT_LOCK = threading.Lock()
+_P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 
 
 def f32(x) -> float:
@@ -70,7 +86,7 @@ def _seq_scan(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def ordered_cumsum(x: torch.Tensor) -> torch.Tensor:
+def ordered_cumsum_plain(x: torch.Tensor) -> torch.Tensor:
     """Row-wise f32 inclusive prefix sum [B, L] in the reference's order:
     sequential sums inside blocks of 16, the block totals scanned the same
     way recursively, each block offset by the exclusive prefix of the
@@ -81,12 +97,12 @@ def ordered_cumsum(x: torch.Tensor) -> torch.Tensor:
     m = -(-n // 16) * 16
     xp = torch.nn.functional.pad(x, (0, m - n)).reshape(b, m // 16, 16)
     inner = _seq_scan(xp)
-    tot = ordered_cumsum(inner[:, :, -1].contiguous())
+    tot = ordered_cumsum_plain(inner[:, :, -1].contiguous())
     excl = torch.nn.functional.pad(tot[:, :-1], (1, 0))
     return (inner + excl[:, :, None]).reshape(b, m)[:, :n]
 
 
-def ordered_sum(x: torch.Tensor) -> torch.Tensor:
+def ordered_sum_plain(x: torch.Tensor) -> torch.Tensor:
     """Row-wise f32 sum [B, L] -> [B] in the reference's order: while a row
     is longer than 32, pad it (half the padding in front) to a multiple of
     32 and replace it by the sequential sums of its 32-wide windows; then
@@ -103,6 +119,52 @@ def ordered_sum(x: torch.Tensor) -> torch.Tensor:
     for j in range(x.shape[1]):
         acc = acc + x[:, j]
     return acc
+
+
+def _ordered(fn, entry: str, plain, x: torch.Tensor, out_shape) -> torch.Tensor:
+    """An ordered sum's wrapper: check x (f32 [B, L], rows contiguous), then
+    plain(x) on CPU tensors, the kernel `entry` on CUDA tensors."""
+    if x.dim() != 2:
+        raise ValueError(f"{fn.__name__}: x must be 2-D, got {tuple(x.shape)}")
+    check_operand(fn.__name__, "x", x, torch.float32, x.shape, x.device,
+                  strided_rows=True)
+    dev = x.device
+    if dev.type == "cpu":
+        return plain(x)
+    if dev.type != "cuda":
+        raise ValueError(f"{fn.__name__}: unsupported device {dev}")
+    b, l = x.shape
+    out = torch.empty(out_shape, dtype=torch.float32, device=dev)
+    if b == 0 or l == 0:
+        return out.zero_()
+    with torch.cuda.device(dev):
+        rc = kernel(entry, [_P, _LL, _P, _I, _I, _P])(
+            x.data_ptr(), x.stride(0), out.data_ptr(), b, l,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn.__name__} kernel launch failed: CUDA error {rc}")
+    with COUNT_LOCK:
+        fn.launches += 1
+    return out
+
+
+def ordered_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """`ordered_cumsum_plain` of f32 [B, L] (rows contiguous, any row
+    stride): on CUDA tensors by the kernel rh_ordered_cumsum
+    (csrc/ordered_scan.cu), bit for bit."""
+    return _ordered(ordered_cumsum, "rh_ordered_cumsum", ordered_cumsum_plain, x,
+                    x.shape)
+
+
+def ordered_sum(x: torch.Tensor) -> torch.Tensor:
+    """`ordered_sum_plain` of f32 [B, L] (rows contiguous, any row stride)
+    -> [B]: on CUDA tensors by the kernel rh_ordered_sum
+    (csrc/ordered_scan.cu), bit for bit."""
+    return _ordered(ordered_sum, "rh_ordered_sum", ordered_sum_plain, x, x.shape[:1])
+
+
+ordered_cumsum.launches = 0
+ordered_sum.launches = 0
 
 
 def dense_compact(values: torch.Tensor, keep: torch.Tensor):
@@ -190,13 +252,13 @@ def _detector_step(cur, i: int, state, active, threshold: float, wl: int,
     return (new_pp, new_pv, new_valid), emit_pos, mask_signal, pp2
 
 
-def _gen_peaks(tstat1, tstat2, n_sig, t1: float, t2: float, w1: int, w2: int,
-               peak_height: float):
+def _gen_peaks_plain(tstat1, tstat2, n_sig, t1: float, t2: float, w1: int,
+                     w2: int, peak_height: float):
     """Step the dual-detector state machine over signal positions; returns
     emitted peak positions [B, 2L] in emission order (-1 = no emission).
 
     Positions past every row's n_sig change no state, so the loop stops at
-    the longest row."""
+    the longest row (read back to the host)."""
     b, l = tstat1.shape
     dev = tstat1.device
     t1f, t2f, ph = f32(t1), f32(t2), f32(peak_height)
@@ -234,6 +296,42 @@ def _gen_peaks(tstat1, tstat2, n_sig, t1: float, t2: float, w1: int, w2: int,
         emits[:, i, 0] = emit0
         emits[:, i, 1] = emit1
     return emits.reshape(b, 2 * l)
+
+
+def _gen_peaks(tstat1, tstat2, n_sig, t1: float, t2: float, w1: int, w2: int,
+               peak_height: float):
+    """`_gen_peaks_plain` (tstat1, tstat2 f32 [B, L], n_sig i32 [B], all
+    contiguous -> i32 [B, 2L]): on CUDA tensors by the kernel
+    rh_events_peaks (csrc/events_peaks.cu), bit for bit, each row stepped
+    to its own n_sig."""
+    if tstat1.dim() != 2:
+        raise ValueError(f"_gen_peaks: tstat1 must be 2-D, got {tuple(tstat1.shape)}")
+    b, l = tstat1.shape
+    dev = tstat1.device
+    for name, t, dtype, shape in (("tstat1", tstat1, torch.float32, (b, l)),
+                                  ("tstat2", tstat2, torch.float32, (b, l)),
+                                  ("n_sig", n_sig, torch.int32, (b,))):
+        check_operand("_gen_peaks", name, t, dtype, shape, dev)
+    if dev.type == "cpu":
+        return _gen_peaks_plain(tstat1, tstat2, n_sig, t1, t2, w1, w2, peak_height)
+    if dev.type != "cuda":
+        raise ValueError(f"_gen_peaks: unsupported device {dev}")
+    out = torch.empty((b, 2 * l), dtype=torch.int32, device=dev)
+    if b == 0 or l == 0:
+        return out
+    with torch.cuda.device(dev):
+        rc = kernel("rh_events_peaks", [_P] * 4 + [_I] * 2 + [_F] * 3 + [_I] * 3 + [_P])(
+            tstat1.data_ptr(), tstat2.data_ptr(), n_sig.data_ptr(), out.data_ptr(),
+            b, l, f32(t1), f32(t2), f32(peak_height), w1, w1 // 2, w2 // 2,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"_gen_peaks kernel launch failed: CUDA error {rc}")
+    with COUNT_LOCK:
+        _gen_peaks.launches += 1
+    return out
+
+
+_gen_peaks.launches = 0
 
 
 def _sort_key_f32(v: torch.Tensor) -> torch.Tensor:

@@ -1,20 +1,26 @@
 """Batched sketching on tensors (port of rawhash_tpu/sketch/device.py):
 events -> 32-bit seed hashes, within-chunk seed positions and validity.
-Hashes are u32 values carried in int64."""
+Hashes are u32 values carried in int64.  The event-difference filter, a
+serial scan over each read's events, runs on CUDA tensors as a kernel
+(`_diff_filter`, csrc/diff_filter.cu), as the JAX package compiles its scan
+into the sketch program; on CPU tensors as its plain version."""
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
-from ..signal.events import dense_compact, f32
+from .._build import check_operand, kernel
+from ..signal.events import COUNT_LOCK, dense_compact, f32
 from .quantize import U32, dynamic_quantize, hash32
 
 
-def _diff_filter(events: torch.Tensor, n_ev: torch.Tensor, diff: float):
+def _diff_filter_plain(events: torch.Tensor, n_ev: torch.Tensor, diff: float):
     """Keep events differing from the last *kept* event by >= diff
     (rsketch.c:95,187).  Returns the keep mask [B, E].  A sequential loop
     over event positions with a [B]-wide carry; it stops at the longest
-    row, since no later position can be kept."""
+    row (read back to the host), since no later position can be kept."""
     b, e = events.shape
     dev = events.device
     thr = f32(diff)
@@ -29,6 +35,38 @@ def _diff_filter(events: torch.Tensor, n_ev: torch.Tensor, diff: float):
         last = torch.where(k, v, last)
         keep[:, t] = k
     return keep
+
+
+def _diff_filter(events: torch.Tensor, n_ev: torch.Tensor, diff: float):
+    """`_diff_filter_plain` (events f32 [B, E], n_ev i32 [B], contiguous ->
+    bool [B, E]): on CUDA tensors by the kernel rh_diff_filter
+    (csrc/diff_filter.cu), bit for bit, each row stepped to its own n_ev."""
+    if events.dim() != 2:
+        raise ValueError(f"_diff_filter: events must be 2-D, got {tuple(events.shape)}")
+    b, e = events.shape
+    dev = events.device
+    check_operand("_diff_filter", "events", events, torch.float32, (b, e), dev)
+    check_operand("_diff_filter", "n_ev", n_ev, torch.int32, (b,), dev)
+    if dev.type == "cpu":
+        return _diff_filter_plain(events, n_ev, diff)
+    if dev.type != "cuda":
+        raise ValueError(f"_diff_filter: unsupported device {dev}")
+    keep = torch.empty((b, e), dtype=torch.bool, device=dev)
+    if b == 0 or e == 0:
+        return keep
+    p, i = ctypes.c_void_p, ctypes.c_int
+    with torch.cuda.device(dev):
+        rc = kernel("rh_diff_filter", [p, p, p, i, i, ctypes.c_float, p])(
+            events.data_ptr(), n_ev.data_ptr(), keep.data_ptr(), b, e, f32(diff),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"_diff_filter kernel launch failed: CUDA error {rc}")
+    with COUNT_LOCK:
+        _diff_filter.launches += 1
+    return keep
+
+
+_diff_filter.launches = 0
 
 
 def sketch_batch(

@@ -1,7 +1,8 @@
 """Synthetic mapping workloads from a seed: genome, pore model, reads with
 their true positions, and the preset's options; all-vs-all overlap
-workloads with their true pairs; and chain-backtrack inputs.  Used by the
-tests and by chip_smoke.py."""
+workloads with their true pairs; chain-backtrack inputs; and raw signal
+chunks and t-statistics for the event kernels.  Used by the tests and by
+chip_smoke.py."""
 
 from __future__ import annotations
 
@@ -227,3 +228,31 @@ def border_anchors(max_dist_t: int, bw: int, n: int = 120, seed: int = 41):
     key[3, n - 8:] = 1 << 31
     n_anchors = np.array([n, 0, 1, n - 7], np.int32)
     return key, tpos, qpos, n_anchors
+
+
+def signal_chunk(rng: np.random.Generator, b: int, l: int) -> np.ndarray:
+    """A nanopore-like f32 chunk [b, l] in pA: levels held ~9 samples plus
+    noise, rounded to f16 as the engine ships signal, then widened."""
+    levels = rng.normal(90.0, 12.0, size=(b, l // 9 + 1))
+    sig = np.repeat(levels, 9, axis=1)[:, :l] + rng.normal(0, 1.0, (b, l))
+    return sig.astype(np.float16).astype(np.float32)
+
+
+def event_tstats(rng: np.random.Generator, b: int, l: int, n_sig: np.ndarray,
+                 w1: int, w2: int):
+    """The peak detector's inputs for nanopore-like z-normalised rows: the
+    t-statistics (f32 [b, l]) over windows w1 and w2, valid up to each
+    row's n_sig, as the events stage computes them (plain PyTorch on the
+    CPU)."""
+    import torch
+
+    from .signal import events as ev
+
+    levels = rng.normal(0.0, 1.0, size=(b, l // 9 + 2))
+    x = np.repeat(levels, 9, axis=1)[:, :l] + rng.normal(0, 0.15, (b, l))
+    norm = torch.from_numpy(x.astype(np.float32))
+    prefix = torch.nn.functional.pad(ev.ordered_cumsum_plain(norm), (1, 0))
+    prefix_sq = torch.nn.functional.pad(ev.ordered_cumsum_plain(norm * norm), (1, 0))
+    ns = torch.from_numpy(np.minimum(n_sig, l).astype(np.int32))
+    return (ev._tstat(prefix, prefix_sq, ns, w1).numpy(),
+            ev._tstat(prefix, prefix_sq, ns, w2).numpy())

@@ -169,7 +169,7 @@ def host_lib():
     """The kernel's header built for the host (g++)."""
     if shutil.which("g++") is None:
         pytest.skip("no g++ to build the kernel-logic harness")
-    return load_host_library()
+    return load_host_library("chain_backtrack")
 
 
 def backtrack_host_rounds(f, p, n_anchors, tpos, qpos, *, min_cnt, min_sc,
@@ -178,7 +178,7 @@ def backtrack_host_rounds(f, p, n_anchors, tpos, qpos, *, min_cnt, min_sc,
     on the host with the 32 lanes as a loop (csrc/chain_backtrack_host.cpp),
     on `candidate_order`, at a staging depth: the ten outputs as numpy
     int32 arrays, in chain_backtrack's order."""
-    lib = load_host_library()
+    lib = load_host_library("chain_backtrack")
     f, p, n_anchors, tpos, qpos = map(host_array, (f, p, n_anchors, tpos, qpos))
     z_f, z_idx, n_cand, _ = candidate_order(T(f), T(n_anchors), min_sc)
     z_f, z_idx, n_cand = map(host_array, (z_f, z_idx, n_cand))

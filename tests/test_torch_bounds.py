@@ -220,3 +220,40 @@ def test_backtrack_work_counts_every_step(rows, k_cap):
     assert backtrack_ops(got)["int32"] == sum(
         per * got[k] for k, per in BACKTRACK_COST.items())
     assert backtrack_bytes(got, 3) > 4 * got["live"]
+
+
+@pytest.mark.parametrize("n", [1, 16, 17, 33, 256, 4000, 4001, 28672])
+@pytest.mark.parametrize("kind", ["cumsum", "sum"])
+def test_scan_adds_count_the_levels(n, kind):
+    """The ordered sums' adds, counted level by level as the plain versions
+    make them: one per value of every padded level, and the cumsum's
+    down-sweep two per value below the top."""
+    block = 16 if kind == "cumsum" else 32
+    want, level, below = 0, n, 0
+    while level > block:
+        nxt = -(-level // block)
+        want += nxt * block
+        below += level
+        level = nxt
+    want += level + (2 * below if kind == "cumsum" else 0)
+    assert bounds.scan_adds(n, kind) == want
+    assert bounds.scan_adds(n, kind) >= n
+
+
+def test_event_kernel_bounds(boost_clock):
+    """The serial scans are bounded by their critical path at the main
+    path's shapes, the ordered sums by their bytes."""
+    lat = {"viaddmnmx": 4.0}
+    got = bounds.peaks_bound(256, 4000, 3990, lat)
+    assert got["bound_class"] == "critical_path"
+    assert got["bound_ms"] == pytest.approx(3990 * bounds.PEAKS_CHAIN * 4.0 / HZ * 1e3)
+    assert got["class_ms"]["bytes"] == pytest.approx(
+        (16 * 256 * 4000 + 4 * 256) / 3.35e12 * 1e3)
+    assert bounds.peaks_bound(256, 4000, 3990)["bound_class"] == "bytes"
+    got = bounds.diff_filter_bound(256, 768, 700, lat)
+    assert got["bound_class"] == "critical_path"
+    assert got["bound_ms"] == pytest.approx(700 * bounds.DIFF_CHAIN * 4.0 / HZ * 1e3)
+    for kind, out in (("cumsum", 4000), ("sum", 1)):
+        got = bounds.scan_bound(256, 4000, kind)
+        assert got["bound_class"] == "bytes"
+        assert got["bound_ms"] == pytest.approx(4 * 256 * (4000 + out) / 3.35e12 * 1e3)

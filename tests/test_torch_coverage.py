@@ -91,6 +91,76 @@ LEFT_BEHIND = {
 }
 
 
+# The JAX package's environment variables that the port does not read, each
+# with its reason (ROADMAP.md's ground rules).  Every other variable the JAX
+# package reads, the port reads too.
+ENV_LEFT_BEHIND = {
+    "JAX_PLATFORMS": PLATFORM,
+    "RAWHASH_TPU_CACHE": CACHE,
+    "RAWHASH_TPU_KEEP_MOSAIC_DEBUG": CACHE,
+    "RAWHASH_TPU_LOG_COMPILES": JIT,
+    "RAWHASH_TPU_NO_PALLAS": ("the Pallas kernels' XLA fallbacks; the port's kernels "
+                              "have no fallback, and CPU tensors take the plain versions"),
+    "RAWHASH_TPU_FLAT_PACK": TUNNEL,
+    "RAWHASH_TPU_FULL_PACK": TUNNEL,
+    "RAWHASH_TPU_FK_BASE": "the pow2 ladders of the packed fetch's widths: " + TUNNEL,
+    "RAWHASH_TPU_FP_BASE": "the pow2 ladders of the packed fetch's widths: " + TUNNEL,
+    "RAWHASH_TPU_ROW_LADDER_BASE": ("the pow2 ladder of batch rows that bounds XLA's "
+                                    "recompiles; PyTorch compiles nothing"),
+    "RAWHASH_TPU_FORCE_WARMUP": WARMUP,
+    "RAWHASH_TPU_NATIVE_CACHE": ("the native library's cache outside the checkout; the "
+                                 "port builds into build/ at the checkout's root"),
+    "RAWHASH_TPU_TRACE_CHUNK": ("traces the tunnel's packed fetch of one chunk; the "
+                                "port's stages are in StageProfiler"),
+}
+
+
+def environment_reads(root: Path) -> set:
+    """The environment variables the .py files under root read: the first
+    argument of os.environ.get / os.getenv, os.environ[...] and
+    `"X" in os.environ`, where it is a string."""
+    def is_environ(node):
+        return isinstance(node, ast.Attribute) and node.attr == "environ"
+
+    names = set()
+    for path in root.rglob("*.py"):
+        for node in ast.walk(ast.parse(path.read_text())):
+            key = None
+            if isinstance(node, ast.Call) and node.args:
+                f = node.func
+                if isinstance(f, ast.Attribute) and (
+                        (f.attr == "get" and is_environ(f.value)) or f.attr == "getenv"):
+                    key = node.args[0]
+            elif isinstance(node, ast.Subscript) and is_environ(node.value):
+                key = node.slice
+            elif (isinstance(node, ast.Compare) and len(node.ops) == 1
+                  and isinstance(node.ops[0], ast.In) and is_environ(node.comparators[0])):
+                key = node.left
+            if isinstance(key, ast.Constant) and isinstance(key.value, str):
+                names.add(key.value)
+    return names
+
+
+def test_every_environment_variable_is_read_or_left_behind():
+    """Each variable the JAX package reads is read by the port or listed in
+    ENV_LEFT_BEHIND with its reason, not both; no entry is stale."""
+    jax_env, port_env = environment_reads(JAX_PKG), environment_reads(PORT)
+    assert len(jax_env) > 10
+    assert jax_env - port_env == set(ENV_LEFT_BEHIND)
+    assert not set(ENV_LEFT_BEHIND) & port_env
+
+
+@pytest.mark.parametrize("var", ["RAWHASH_TPU_TAIL_SWITCH_ANCHORS",
+                                 "RAWHASH_TPU_TAIL_SWITCH_BYTES"])
+def test_tail_switch_overrides_are_honoured(var):
+    """The JAX engine's tail-switch overrides are read by the port's engine,
+    not left behind (tests/test_torch_device_tail.py holds the watermarks
+    equal)."""
+    assert var in environment_reads(JAX_PKG / "map")
+    assert var in environment_reads(PORT / "map")
+    assert var not in ENV_LEFT_BEHIND
+
+
 def defined_names(path: Path) -> list:
     """The top-level functions and classes of a module, and the methods of
     each class as Class.method."""

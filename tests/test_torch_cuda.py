@@ -26,9 +26,11 @@ from rawhash_tpu_torch.profiling.bounds import fill_work  # noqa: E402
 from rawhash_tpu_torch.profiling.fill_loop_overhead import (  # noqa: E402
     INT32_MIN, MAX_W, fill_loop_probe, fill_loop_probe_plain, measure_latencies,
 )
+from rawhash_tpu_torch.signal import events as ev  # noqa: E402
+from rawhash_tpu_torch.sketch import device as sk  # noqa: E402
 from rawhash_tpu_torch.synthetic import (  # noqa: E402
-    ava_fixture_reads, border_anchors, clustered_anchors, options, random_chains,
-    sparse_anchors, wide_band_anchors,
+    ava_fixture_reads, border_anchors, clustered_anchors, event_tstats, options,
+    random_chains, signal_chunk, sparse_anchors, wide_band_anchors,
 )
 
 
@@ -347,3 +349,124 @@ def test_pipeline_depth_3_on_the_card_matches_depth_1(cuda_device, monkeypatch, 
     assert sum(m[-1] for _, rs in recs[1] for m in rs) >= 8
     assert used[1] == {default}
     assert len(used[3]) > 1 and default not in used[3]
+
+
+PEAKS = dict(t1=4.0, t2=3.5, w1=3, w2=9, peak_height=0.4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l", [(5, 33), (70, 4000), (256, 4000), (16, 28672)])
+def test_gen_peaks_kernel_matches_plain(cuda_device, b, l):
+    """The peak detector's kernel against the plain detector on the same
+    t-statistics: rows of different lengths (0, under 2 w2, all of L, past
+    it), a batch that is not a multiple of 32 reads, L not a multiple of
+    the kernel's 32-position tile."""
+    rng = np.random.default_rng(l + b)
+    n_sig = rng.integers(0, l + 1, b).astype(np.int32)
+    n_sig[:4] = [l, 0, min(l, 17), l + 3][:b]
+    ts1, ts2 = event_tstats(rng, b, l, n_sig, PEAKS["w1"], PEAKS["w2"])
+    args = [torch.from_numpy(x) for x in (ts1, ts2, n_sig)]
+    before = ev._gen_peaks.launches
+    got = ev._gen_peaks(*(a.to(cuda_device) for a in args), **PEAKS)
+    torch.cuda.synchronize()
+    assert ev._gen_peaks.launches == before + 1
+    want = ev._gen_peaks_plain(*args, **PEAKS)
+    assert torch.equal(got.cpu(), want)
+    assert int((want >= 0).sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l", [1, 5, 16, 17, 33, 255, 1000, 4000, 4001, 28672])
+def test_ordered_scan_kernels_match_plain(cuda_device, l):
+    """The ordered prefix sum and sum on the card against the plain versions
+    (XLA's CPU order), on contiguous rows and on rows of a wider array."""
+    rng = np.random.default_rng(l)
+    wide = torch.from_numpy(rng.normal(0, 3, (37, l + 5)).astype(np.float32))
+    for x in (wide[:, :l].contiguous(), wide[:, 2:l + 2]):
+        xc = x.to(cuda_device) if x.is_contiguous() else wide.to(cuda_device)[:, 2:l + 2]
+        before = (ev.ordered_cumsum.launches, ev.ordered_sum.launches)
+        cum, tot = ev.ordered_cumsum(xc), ev.ordered_sum(xc)
+        torch.cuda.synchronize()
+        assert (ev.ordered_cumsum.launches, ev.ordered_sum.launches) == (
+            before[0] + 1, before[1] + 1)
+        assert torch.equal(cum.cpu(), ev.ordered_cumsum_plain(x))
+        assert torch.equal(tot.cpu(), ev.ordered_sum_plain(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,e", [(3, 33), (256, 768), (40, 16384)])
+def test_diff_filter_kernel_matches_plain(cuda_device, b, e):
+    """n_ev 0, 1 and E: event 0 is kept whenever n_ev > 0."""
+    rng = np.random.default_rng(e)
+    events = (np.round(rng.normal(0, 1.0, (b, e)) / 0.05) * 0.05).astype(np.float32)
+    n_ev = rng.integers(0, e + 1, b).astype(np.int32)
+    n_ev[:3] = [0, 1, e]
+    args = [torch.from_numpy(x) for x in (events, n_ev)]
+    before = sk._diff_filter.launches
+    got = sk._diff_filter(*(a.to(cuda_device) for a in args), 0.35)
+    torch.cuda.synchronize()
+    assert sk._diff_filter.launches == before + 1
+    want = sk._diff_filter_plain(*args, 0.35)
+    assert torch.equal(got.cpu(), want)
+    assert not want[0].any() and bool(want[1, 0]) and not want[1, 1:].any()
+
+
+@pytest.mark.cuda
+def test_event_kernels_reject_mixed_devices(cuda_device):
+    ts = torch.zeros((4, 64), device=cuda_device)
+    with pytest.raises(ValueError):
+        ev._gen_peaks(ts, ts, torch.zeros(4, dtype=torch.int32), **PEAKS)
+    with pytest.raises(ValueError):
+        sk._diff_filter(ts, torch.zeros(4, dtype=torch.int32), 0.35)
+    with pytest.raises(ValueError):
+        ev.ordered_cumsum(ts.t())
+
+
+def _events_and_sketch(sig, slen, preset):
+    from rawhash_tpu_torch.map.device_step import events_and_sketch
+
+    io, mo = options(preset)
+    return events_and_sketch(
+        sig, slen, ev.NormCarry.zeros(sig.shape[0], sig.device),
+        window_length1=mo.window_length1, window_length2=mo.window_length2,
+        threshold1=mo.threshold1, threshold2=mo.threshold2,
+        peak_height=mo.peak_height, e_cap=mo.max_events_per_chunk,
+        min_events=mo.min_events, diff=io.diff, w=io.w, e=io.e, q=io.q, k=io.k,
+        fine_min=io.fine_min, fine_max=io.fine_max, fine_range=io.fine_range)
+
+
+@pytest.mark.cuda
+def test_events_and_sketch_on_the_card(cuda_device):
+    """The events and sketch stage on the card launches each kernel (the
+    detector and the filter once, the ordered sums five times), with no
+    sync: the same torch ops at L = 4000 and 8000, none of them reading a
+    value back."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    ops = {}
+    for l in (4000, 8000):
+        sig = torch.from_numpy(signal_chunk(np.random.default_rng(l), 64, l)).to(cuda_device)
+        slen = torch.full((64,), l, dtype=torch.int32, device=cuda_device)
+        _events_and_sketch(sig, slen, "viral")  # warm-up: the library is built
+        counters = (ev._gen_peaks, ev.ordered_cumsum, ev.ordered_sum, sk._diff_filter)
+        before = [f.launches for f in counters]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with Count() as count:
+                out = _events_and_sketch(sig, slen, "viral")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        ops[l] = count.n
+        assert [f.launches - n for f, n in zip(counters, before)] == [1, 3, 2, 1]
+        assert int(out[1].min()) > 50 and bool(out[6].any())
+    assert ops[4000] == ops[8000]

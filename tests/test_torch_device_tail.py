@@ -187,6 +187,39 @@ def test_tail_switch_anchors_matches_jax(fixture, monkeypatch, preset):
     assert eng.tail_switch_anchors == want
 
 
+@pytest.mark.parametrize("env", [
+    {"RAWHASH_TPU_TAIL_SWITCH_ANCHORS": "10"},
+    {"RAWHASH_TPU_TAIL_SWITCH_ANCHORS": str(1 << 30)},
+    {"RAWHASH_TPU_TAIL_SWITCH_BYTES": str(1 << 20)},
+    {"RAWHASH_TPU_TAIL_SWITCH_BYTES": "1000"},  # under the floor of 512 anchors
+    {"RAWHASH_TPU_TAIL_SWITCH_BYTES": str(1 << 30)},
+    # a set watermark wins over a set budget; an empty one does not count
+    {"RAWHASH_TPU_TAIL_SWITCH_ANCHORS": "77", "RAWHASH_TPU_TAIL_SWITCH_BYTES": "1000"},
+    {"RAWHASH_TPU_TAIL_SWITCH_ANCHORS": "", "RAWHASH_TPU_TAIL_SWITCH_BYTES": str(1 << 22)},
+])
+def test_tail_switch_overrides_match_jax(fixture, monkeypatch, env):
+    """With the JAX engine's overrides set, both engines switch tails at the
+    same watermark, on the same index and options."""
+    for var in ("RAWHASH_TPU_TAIL_SWITCH_ANCHORS", "RAWHASH_TPU_TAIL_SWITCH_BYTES",
+                "RAWHASH_TPU_DEVICE_TAIL", "RAWHASH_TPU_NO_DEVICE_TAIL"):
+        monkeypatch.delenv(var, raising=False)
+    for var, value in env.items():
+        monkeypatch.setenv(var, value)
+    path = str(fixture / "sensitive.rhi.npz")
+    jmopt = jcfg.MapOptions()
+    jcfg.set_preset("sensitive", jcfg.IndexOptions(), jmopt)
+    want = JaxEngine(jax_load_index(path), jmopt).tail_switch_anchors
+    eng = MappingEngine(load_index(path), options("sensitive")[1], device="cpu")
+    assert eng.tail_switch_anchors == want
+    default = 8 << 20
+    if env.get("RAWHASH_TPU_TAIL_SWITCH_ANCHORS"):
+        assert want == int(env["RAWHASH_TPU_TAIL_SWITCH_ANCHORS"])
+    elif int(env["RAWHASH_TPU_TAIL_SWITCH_BYTES"]) != default:
+        monkeypatch.delenv("RAWHASH_TPU_TAIL_SWITCH_BYTES")
+        plain = MappingEngine(load_index(path), options("sensitive")[1], device="cpu")
+        assert want != plain.tail_switch_anchors or want == 512
+
+
 def _snap(res):
     return [(r.name, [(m.ref_id, m.frag_start, m.mapq, m.rev, m.mapped)
                       for m in r.records]) for r in res]

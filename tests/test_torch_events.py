@@ -9,14 +9,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from rawhash_tpu.signal import events as jev  # noqa: E402
 from rawhash_tpu_torch.signal import events as tev  # noqa: E402
-
-
-def _signal(rng, b, l):
-    """Nanopore-like pA signal (levels held ~9 samples plus noise), as the
-    engine ships it: rounded to f16, then widened to f32."""
-    levels = rng.normal(90.0, 12.0, size=(b, l // 9 + 1))
-    sig = np.repeat(levels, 9, axis=1)[:, :l] + rng.normal(0, 1.0, (b, l))
-    return sig.astype(np.float16).astype(np.float32)
+from rawhash_tpu_torch.synthetic import signal_chunk  # noqa: E402
 
 
 @pytest.mark.parametrize("n", [5, 16, 33, 255, 1000, 4000, 4001])
@@ -38,7 +31,7 @@ def test_detect_events_batch_matches_jax(seed, b, l, e_cap):
     tcarry = tev.NormCarry.zeros(b, "cpu")
     # two chunks, so the normalisation carry is exercised too
     for chunk in range(2):
-        sig = _signal(rng, b, l)
+        sig = signal_chunk(rng, b, l)
         slen = rng.integers(l // 2, l + 1, b).astype(np.int32)
         slen[0] = l
         if chunk == 1:

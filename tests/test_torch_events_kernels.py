@@ -1,0 +1,293 @@
+"""The events and sketch kernels' own logic on the CPU: the headers of the
+peak detector (csrc/events_peaks.cuh), the ordered sums
+(csrc/ordered_scan.cuh) and the diff filter (csrc/diff_filter.cuh), built
+for the host with g++ (csrc/*_host.cpp), held bit for bit against the plain
+PyTorch versions on seeded inputs and edge cases; the plain versions held
+bit for bit against the JAX package's functions on identical inputs; and
+the wrappers' checks.  The kernels themselves run on a card in
+test_torch_cuda.py."""
+
+import ctypes
+import shutil
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # small tensors; xdist workers share the cores
+import jax.numpy as jnp  # noqa: E402
+
+from rawhash_tpu.signal import events as jev  # noqa: E402
+from rawhash_tpu.sketch import device as jsk  # noqa: E402
+from rawhash_tpu_torch._build import load_host_library  # noqa: E402
+from rawhash_tpu_torch.signal import events as tev  # noqa: E402
+from rawhash_tpu_torch.sketch import device as tsk  # noqa: E402
+from rawhash_tpu_torch.synthetic import event_tstats, options  # noqa: E402
+
+P = ctypes.c_void_p
+VIRAL = options("viral")
+# the detector's parameters as detect_events_batch passes them
+PEAKS = dict(t1=VIRAL[1].threshold1, t2=VIRAL[1].threshold2,
+             w1=VIRAL[1].window_length1, w2=VIRAL[1].window_length2,
+             peak_height=VIRAL[1].peak_height)
+DIFF = VIRAL[0].diff
+
+
+def _lib(name):
+    if shutil.which("g++") is None:
+        pytest.skip("no g++ to build the kernel-logic harness")
+    return load_host_library(name)
+
+
+def _ptr(a):
+    return a.ctypes.data_as(P)
+
+
+def host_peaks(ts1, ts2, n_sig, *, t1, t2, w1, w2, peak_height):
+    """rh_peaks_host: the kernel's per-read step (events_peaks.cuh)."""
+    lib = _lib("events_peaks")
+    lib.rh_peaks_host.argtypes = [P] * 4 + [ctypes.c_int] * 2 + [ctypes.c_float] * 3 + [
+        ctypes.c_int] * 3
+    b, l = ts1.shape
+    out = np.full((b, 2 * l), 7, np.int32)
+    lib.rh_peaks_host(_ptr(ts1), _ptr(ts2), _ptr(n_sig), _ptr(out), b, l, t1, t2,
+                      peak_height, w1, w1 // 2, w2 // 2)
+    return out
+
+
+def host_scan(x, which):
+    """rh_cumsum_host / rh_sum_host over x's rows (any row stride), level by
+    level as the kernels run them (ordered_scan.cuh)."""
+    lib = _lib("ordered_scan")
+    fn = getattr(lib, f"rh_{which}_host")
+    fn.argtypes = [P, ctypes.c_longlong, P, ctypes.c_int, ctypes.c_int]
+    b, l = x.shape
+    out = np.full((b, l) if which == "cumsum" else (b,), np.nan, np.float32)
+    fn(_ptr(x), x.strides[0] // 4, _ptr(out), b, l)
+    return out
+
+
+def host_diff(events, n_ev, diff):
+    """rh_diff_filter_host: the kernel's per-read step (diff_filter.cuh)."""
+    lib = _lib("diff_filter")
+    lib.rh_diff_filter_host.argtypes = [P] * 3 + [ctypes.c_int] * 2 + [ctypes.c_float]
+    b, e = events.shape
+    keep = np.full((b, e), 7, np.uint8)
+    lib.rh_diff_filter_host(_ptr(events), _ptr(n_ev), _ptr(keep), b, e, diff)
+    assert set(np.unique(keep)) <= {0, 1}
+    return keep.astype(bool)
+
+
+def plain_peaks(ts1, ts2, n_sig, **prm):
+    return tev._gen_peaks_plain(torch.from_numpy(ts1), torch.from_numpy(ts2),
+                                torch.from_numpy(n_sig), **prm).numpy()
+
+
+def _signal_tstats(rng, b, l, n_sig):
+    return event_tstats(rng, b, l, n_sig, PEAKS["w1"], PEAKS["w2"])
+
+
+def _edge_tstats(rng, b, l):
+    """Rows of values on the comparisons' edges: exactly at the thresholds,
+    at peak_height above a valley, FLT_MAX, zeros and plateaus."""
+    f = np.float32
+    vals = np.array([0.0, f(0.4), f(0.8), f(3.5), f(3.9), f(4.0), f(4.4), f(7.9),
+                     f(8.3), f(3.5) + f(0.4), 3.4028235e38], np.float32)
+    ts1 = vals[rng.integers(0, len(vals), (b, l))]
+    ts2 = vals[rng.integers(0, len(vals), (b, l))]
+    # plateaus: a value held for a few positions
+    ts1[:, 1::3] = ts1[:, 0:-1:3][:, : ts1[:, 1::3].shape[1]]
+    return ts1.astype(np.float32), ts2.astype(np.float32)
+
+
+@pytest.mark.parametrize("seed,b,l", [(1, 9, 4000), (2, 5, 1001), (3, 4, 33),
+                                      (4, 3, 28672)])
+@pytest.mark.parametrize("inputs", ["signal", "edges"])
+def test_peaks_header_matches_plain(seed, b, l, inputs):
+    """The kernel's step over every position equals the plain detector, on
+    rows of different lengths: n_sig 0, under 2 w2, a few, all of L and
+    past it."""
+    rng = np.random.default_rng(seed)
+    n_sig = rng.integers(0, l + 1, b).astype(np.int32)
+    n_sig[:3] = [l, 0, min(l, 2 * PEAKS["w2"] - 1)]
+    if b > 3:
+        n_sig[3] = l + 5  # past L: the row is live to its end
+    if inputs == "signal":
+        ts1, ts2 = _signal_tstats(rng, b, l, np.minimum(n_sig, l))
+    else:
+        ts1, ts2 = _edge_tstats(rng, b, l)
+    got = host_peaks(ts1, ts2, n_sig, **PEAKS)
+    want = plain_peaks(ts1, ts2, n_sig, **PEAKS)
+    np.testing.assert_array_equal(got, want)
+    assert (want[0] >= 0).sum() > 0 and (want[1] == -1).all()
+
+
+def test_peaks_header_emits_at_the_last_position():
+    """A peak that the short detector emits at the last live position (the
+    signal drops there); and the same row cut one position earlier, where
+    it is never emitted."""
+    l = 40
+    ts1 = np.zeros((2, l), np.float32)
+    ts1[:, 30] = 9.0  # the peak, w1 // 2 = 1 position before the drop
+    ts1[:, 31:] = 9.0
+    ts1[:, 32] = 0.0  # the drop past peak_height, at the last live position
+    ts2 = np.full((2, l), 5.0, np.float32)
+    ts2[:, 10] = 6.0
+    n_sig = np.array([33, 32], np.int32)
+    got = host_peaks(ts1, ts2, n_sig, **PEAKS)
+    want = plain_peaks(ts1, ts2, n_sig, **PEAKS)
+    np.testing.assert_array_equal(got, want)
+    assert want[0, 2 * 32] == 30 and want[1, 2 * 32] == -1
+
+
+def test_peaks_parameters_reach_the_header():
+    """Other thresholds, windows and peak heights give the plain version's
+    emissions."""
+    rng = np.random.default_rng(8)
+    b, l = 6, 3000
+    n_sig = rng.integers(100, l + 1, b).astype(np.int32)
+    ts1, ts2 = _signal_tstats(rng, b, l, n_sig)
+    for prm in (dict(t1=3.0, t2=2.5, w1=4, w2=12, peak_height=0.2),
+                dict(t1=1.0, t2=6.0, w1=1, w2=2, peak_height=1.5)):
+        np.testing.assert_array_equal(host_peaks(ts1, ts2, n_sig, **prm),
+                                      plain_peaks(ts1, ts2, n_sig, **prm))
+
+
+@pytest.mark.parametrize("l", [5, 16, 17, 33, 255, 1000, 4000, 4001, 28672])
+def test_scan_header_matches_plain_and_jax(l):
+    """The kernels' level order equals the plain ordered sums and XLA's CPU
+    jnp.cumsum / jnp.sum bit for bit, on contiguous rows and on rows of a
+    wider array (the kernels take a row stride)."""
+    rng = np.random.default_rng(l)
+    wide = rng.normal(0, 3, (6, l + 7)).astype(np.float32)
+    wide[0, : min(l, 40)] = -0.0  # signed zeros in front
+    for x in (np.ascontiguousarray(wide[:, :l]), wide[:, 3:l + 3]):
+        cum, tot = host_scan(x, "cumsum"), host_scan(x, "sum")
+        xt = torch.from_numpy(x)
+        np.testing.assert_array_equal(cum, tev.ordered_cumsum_plain(xt).numpy())
+        np.testing.assert_array_equal(tot, tev.ordered_sum_plain(xt).numpy())
+        np.testing.assert_array_equal(cum, np.asarray(jnp.cumsum(jnp.asarray(x), axis=1)))
+        np.testing.assert_array_equal(tot, np.asarray(jnp.sum(jnp.asarray(x), axis=1)))
+
+
+def _events(rng, b, e):
+    ev = np.round(rng.normal(0, 1.0, (b, e)) / 0.05) * 0.05  # differences at diff
+    ev = ev.astype(np.float32)
+    n_ev = rng.integers(0, e + 1, b).astype(np.int32)
+    n_ev[:3] = [0, 1, e][:b]
+    return ev, n_ev
+
+
+@pytest.mark.parametrize("seed,b,e", [(1, 9, 768), (2, 4, 33), (3, 3, 16384)])
+def test_diff_filter_header_matches_plain(seed, b, e):
+    """n_ev 0, 1 and E: event 0 is kept whenever n_ev > 0, whatever it is."""
+    rng = np.random.default_rng(seed)
+    ev, n_ev = _events(rng, b, e)
+    ev[1, 0] = 0.0  # equal to the filter's starting value: kept all the same
+    for diff in (DIFF, options("ava")[0].diff, 0.0):
+        got = host_diff(ev, n_ev, diff)
+        want = tsk._diff_filter_plain(torch.from_numpy(ev), torch.from_numpy(n_ev),
+                                      diff).numpy()
+        np.testing.assert_array_equal(got, want)
+        assert not got[0].any() and got[1].tolist() == [True] + [False] * (e - 1)
+        assert 0 < got[2].sum() <= e and (got[2].sum() == e) == (diff == 0.0)
+
+
+@pytest.mark.parametrize("seed,b,l", [(1, 4, 4000), (2, 3, 257)])
+def test_plain_peaks_match_jax(seed, b, l):
+    """The plain detector equals the JAX package's _gen_peaks on identical
+    t-statistics (the scan the kernel replaces)."""
+    rng = np.random.default_rng(seed)
+    n_sig = rng.integers(0, l + 1, b).astype(np.int32)
+    n_sig[0] = l
+    ts1, ts2 = _signal_tstats(rng, b, l, n_sig)
+    ts1[1:, ::97] = np.float32(4.0)  # at the short threshold
+    want = np.asarray(jev._gen_peaks(jnp.asarray(ts1), jnp.asarray(ts2),
+                                     jnp.asarray(n_sig), PEAKS["t1"], PEAKS["t2"],
+                                     PEAKS["w1"], PEAKS["w2"], PEAKS["peak_height"]))
+    np.testing.assert_array_equal(plain_peaks(ts1, ts2, n_sig, **PEAKS), want)
+    assert (want >= 0).sum() > 10
+
+
+@pytest.mark.parametrize("seed,b,e", [(4, 6, 768), (5, 2, 16384)])
+def test_plain_diff_filter_matches_jax(seed, b, e):
+    rng = np.random.default_rng(seed)
+    ev, n_ev = _events(rng, b, e)
+    want = np.asarray(jsk._diff_filter(jnp.asarray(ev), jnp.asarray(n_ev), DIFF))
+    got = tsk._diff_filter_plain(torch.from_numpy(ev), torch.from_numpy(n_ev),
+                                 DIFF).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_wrappers_on_cpu_tensors_take_the_plain_versions():
+    """On CPU tensors each wrapper returns its plain version's result and
+    counts no launch."""
+    rng = np.random.default_rng(11)
+    n_sig = np.array([300, 0, 120], np.int32)
+    ts1, ts2 = _signal_tstats(rng, 3, 300, n_sig)
+    ev, n_ev = _events(rng, 3, 200)
+    before = [f.launches for f in (tev._gen_peaks, tev.ordered_cumsum,
+                                   tev.ordered_sum, tsk._diff_filter)]
+    t = torch.from_numpy
+    np.testing.assert_array_equal(
+        tev._gen_peaks(t(ts1), t(ts2), t(n_sig), **PEAKS).numpy(),
+        plain_peaks(ts1, ts2, n_sig, **PEAKS))
+    np.testing.assert_array_equal(tev.ordered_cumsum(t(ts1)).numpy(),
+                                  host_scan(ts1, "cumsum"))
+    np.testing.assert_array_equal(tev.ordered_sum(t(ts1)).numpy(), host_scan(ts1, "sum"))
+    np.testing.assert_array_equal(tsk._diff_filter(t(ev), t(n_ev), DIFF).numpy(),
+                                  host_diff(ev, n_ev, DIFF))
+    after = [f.launches for f in (tev._gen_peaks, tev.ordered_cumsum,
+                                  tev.ordered_sum, tsk._diff_filter)]
+    assert after == before
+
+
+def _bad_peaks_inputs():
+    ts = torch.zeros((4, 64), dtype=torch.float32)
+    n = torch.zeros(4, dtype=torch.int32)
+    return {
+        "f64 tstat1": (ts.double(), ts, n),
+        "f64 tstat2": (ts, ts.double(), n),
+        "i64 n_sig": (ts, ts, n.long()),
+        "transposed tstat1": (torch.zeros((64, 4)).t(), ts, n),
+        "strided tstat2": (ts, torch.zeros((4, 128))[:, ::2], n),
+        "short n_sig": (ts, ts, n[:3]),
+        "1-D tstat1": (ts[0], ts[0], n),
+    }
+
+
+@pytest.mark.parametrize("case", list(_bad_peaks_inputs()))
+def test_gen_peaks_rejects_wrong_dtype_or_layout(case):
+    with pytest.raises(ValueError):
+        tev._gen_peaks(*_bad_peaks_inputs()[case], **PEAKS)
+
+
+@pytest.mark.parametrize("fn", ["ordered_cumsum", "ordered_sum"])
+@pytest.mark.parametrize("case", ["f64", "transposed", "1-D", "3-D"])
+def test_ordered_sums_reject_wrong_dtype_or_layout(fn, case):
+    x = {"f64": torch.zeros((4, 64), dtype=torch.float64),
+         "transposed": torch.zeros((64, 4)).t(),
+         "1-D": torch.zeros(64),
+         "3-D": torch.zeros((2, 4, 64))}[case]
+    with pytest.raises(ValueError):
+        getattr(tev, fn)(x)
+
+
+def test_ordered_sums_take_strided_rows():
+    """A row stride past the row's length is a layout the kernels take (the
+    events stage passes such a slice)."""
+    x = torch.from_numpy(np.random.default_rng(3).normal(size=(4, 70)).astype(np.float32))
+    np.testing.assert_array_equal(tev.ordered_cumsum(x[:, :64]).numpy(),
+                                  host_scan(x[:, :64].numpy(), "cumsum"))
+
+
+@pytest.mark.parametrize("case", ["f64 events", "i64 n_ev", "transposed events",
+                                  "short n_ev"])
+def test_diff_filter_rejects_wrong_dtype_or_layout(case):
+    ev = torch.zeros((4, 64), dtype=torch.float32)
+    n = torch.zeros(4, dtype=torch.int32)
+    args = {"f64 events": (ev.double(), n), "i64 n_ev": (ev, n.long()),
+            "transposed events": (torch.zeros((64, 4)).t(), n),
+            "short n_ev": (ev, n[:2])}[case]
+    with pytest.raises(ValueError):
+        tsk._diff_filter(*args, DIFF)

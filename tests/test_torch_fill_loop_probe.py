@@ -23,7 +23,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 from jax.experimental import pallas as pl  # noqa: E402
 
-from rawhash_tpu_torch._build import CSRC  # noqa: E402
+from rawhash_tpu_torch._build import load_host_library  # noqa: E402
 from rawhash_tpu_torch.profiling import fill_loop_overhead as flo  # noqa: E402
 from rawhash_tpu_torch.profiling.fill_loop_overhead import (  # noqa: E402
     INT32_MIN, fill_loop_probe, fill_loop_probe_plain,
@@ -159,19 +159,12 @@ def test_module_entry_point_without_a_card_exits_nonzero():
 
 
 @pytest.fixture(scope="module")
-def harness(tmp_path_factory):
+def harness():
     """The kernel's header built as host C++ (csrc/fill_loop_probe_host.cpp):
     the serial column order and the warp forms with the lanes as a loop."""
-    gxx = shutil.which("g++")
-    if gxx is None:
+    if shutil.which("g++") is None:
         pytest.skip("no g++ to build the kernel-logic harness")
-    so = tmp_path_factory.mktemp("probe_harness") / "probe_host.so"
-    subprocess.run(
-        [gxx, "-O2", "-std=c++17", "-shared", "-fPIC", f"-I{CSRC}",
-         str(CSRC / "fill_loop_probe_host.cpp"), "-o", str(so)],
-        check=True, capture_output=True,
-    )
-    lib = ctypes.CDLL(str(so))
+    lib = load_host_library("fill_loop_probe")
     for fn in (lib.rh_probe_serial, lib.rh_probe_warp):
         fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 4
     lib.rh_probe_warp.restype = ctypes.c_int
