@@ -27,17 +27,22 @@ Phases, each printed as one JSON line and each fatal on failure:
                csrc/ordered_scan.cu, the diff filter csrc/diff_filter.cu)
                on the inputs one events+sketch call on the card gives them,
                256 reads at the viral and sensitive (4000 samples, 768
-               events) and ava (28672, 16384) shapes: each call held bit
-               for bit against its plain version on the card, with no sync
-               in the kernel route; kernel timed (median of 7), the plain
-               version once, torch.cumsum / torch.sum as the library's
-               yardstick, each beside its bound (the serial scans' critical
-               paths at latencies measured here); then the stage's torch
-               ops at L = 4000 and 8000, which must be equal (no op a
-               position or an event), with no sync at either
+               events) and ava (28672, 16384) shapes: each call (the sum of
+               the signal and its square, the prefix sums of the clipped
+               signal and its square, the prefix sum of the kept values,
+               the detector, the filter) held bit for bit against its plain
+               version on the card, with no sync in the kernel route; each
+               timed three ways (device time by a CUDA graph of 20 launches,
+               L2 warm; call time on an idle card; the wrapper's host time),
+               the plain version once; the ordered sums also as the single
+               function beside one torch.cumsum / torch.sum call, each
+               beside its bound (the serial scans' critical paths at
+               latencies measured here); then the stage's torch ops at L =
+               4000 and 8000, which must be equal (no op a position or an
+               event), with no sync at either
   5. k4        the fill-loop probe (a serial ring's floor): the card's
-               latencies (a dependent VIADDMNMX, REDUX, 5-round shuffle max;
-               the int32 rate on every SM); kernel vs the plain probe bit
+               latencies (a dependent VIADDMNMX, REDUX, 5-round shuffle max,
+               FSETP -> PLOP3 -> SEL chain; the int32 rate on every SM); kernel vs the plain probe bit
                for bit on a random start at 1000 iterations, W in {1, 33,
                64, 200, 256} (ring in registers) and {257, 4096} (shared
                memory) x 256 at k_ops 2, 7 (runtime k_ops), 20, 60, kernel
@@ -49,7 +54,7 @@ Phases, each printed as one JSON line and each fatal on failure:
                (int32 rate and critical path); in the SASS of every kernel
                instance the integer max count >= k_ops x SPL and growing
                with k_ops, REDUX present, and in the register form no
-               LDL/STL or SHFL
+               LDL/STL or SHFL; the compare-select probes' FSETP and PLOP3
   6. fixture   the CLI (`python -m rawhash_tpu_torch`) on a small fixture,
                --device cuda vs --device cpu: same mapped reads, same PAF
                columns 1, 5 and 6, column 8 within 20; and on cuda with
@@ -843,24 +848,41 @@ def phase_event_kernels(torch, dev) -> dict:
     256 reads of nanopore-like signal): each kernel's inputs are caught from
     one events+sketch call on the card, then each kernel is held against its
     plain version on the card on the same inputs, bit for bit (the peak
-    detector, the diff filter and all five ordered sums of the chunk), with
-    no sync in the kernel routes; the kernel timed (median of 7), the plain
-    version once, one PyTorch call for the same sum (torch.cumsum,
-    torch.sum) as the library's yardstick, each beside its bound (the
-    serial scans' critical paths at the latencies the card measures here);
-    and the stage's torch ops at L = 4000 and 8000, which must be equal,
-    with no sync in the stage at either."""
+    detector, the diff filter and all three ordered sums of the chunk), with
+    no sync in the kernel routes; each call timed three ways
+    (profiling/kernel_time.py: device time, 20 launches in a CUDA graph
+    replayed, the inputs warm in the L2 cache; call time, one call on an
+    idle card; host time, the wrapper's host path), the plain version once;
+    the ordered sums beside the PyTorch calls that give the same outputs
+    (torch.cumsum, torch.sum of x and of x * x, the leading zero padded),
+    and also as the single function (x alone, no leading zero), held
+    against its plain version, beside the one PyTorch call for it; each
+    beside its bound (the serial scans' critical
+    paths at the latencies the card measures here); and the stage's torch
+    ops at L = 4000 and 8000, which must be equal, with no sync in the
+    stage at either."""
     from rawhash_tpu_torch.profiling import bounds
     from rawhash_tpu_torch.profiling.fill_loop_overhead import measure_latencies
+    from rawhash_tpu_torch.profiling.kernel_time import call_ms, device_ms, host_ms
     from rawhash_tpu_torch.signal import events as ev
     from rawhash_tpu_torch.sketch import device as sk
 
     lat = measure_latencies()
-    check(lat["viaddmnmx"] > 0, f"event_kernels: the latency did not measure: {lat}")
+    check(lat["viaddmnmx"] > 0 and lat["fsetp_plop3_sel"] > 0,
+          f"event_kernels: the latency did not measure: {lat}")
     plain = {"gen_peaks": ev._gen_peaks_plain, "ordered_cumsum": ev.ordered_cumsum_plain,
              "ordered_sum": ev.ordered_sum_plain, "diff_filter": sk._diff_filter_plain}
+    pad = torch.nn.functional.pad
     library = {"ordered_cumsum": lambda x: torch.cumsum(x, dim=1),
                "ordered_sum": lambda x: torch.sum(x, dim=1)}
+    # the PyTorch calls that give a call's outputs (a value and its square,
+    # the prefix sum's leading zero)
+    library_out = {
+        "ordered_cumsum": lambda x, squares=False, lead_zero=False: tuple(
+            pad(torch.cumsum(v, dim=1), (int(lead_zero), 0))
+            for v in ((x, x * x) if squares else (x,))),
+        "ordered_sum": lambda x, squares=False: tuple(
+            torch.sum(v, dim=1) for v in ((x, x * x) if squares else (x,)))}
     out = {"latencies": lat, "shapes": {}}
     for shape, (preset, l, e_cap) in EVENT_SHAPES.items():
         b = 256
@@ -892,22 +914,41 @@ def phase_event_kernels(torch, dev) -> dict:
             check(fn.launches == before + 1, f"event_kernels {shape}: {name} did not "
                   "launch its kernel")
             want, plain_ms = timed_once(torch, lambda: plain[name](*a, **k))
-            if got.dtype == torch.bool:
-                err = int((got != want).sum())
-            elif got.dtype == torch.int32:
-                err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
-            else:
-                err = float((got - want).abs().max()) if got.numel() else 0.0
-            check(torch.equal(got, want), f"event_kernels {shape}: {name} disagrees "
-                  f"with its plain version (max abs err {err})")
-            ms = cuda_ms(torch, lambda: fn(*a, **k), 7)
-            row = dict(kernel=name, shape=list(a[0].shape), max_abs_err=err, ms=ms,
+            err = 0
+            for g, w in zip(*((v if isinstance(v, tuple) else (v,)) for v in (got, want))):
+                if g.dtype == torch.bool:
+                    err = max(err, int((g != w).sum()))
+                elif g.dtype == torch.int32:
+                    err = max(err, int((g.long() - w.long()).abs().max()) if g.numel() else 0)
+                else:
+                    err = max(err, float((g - w).abs().max()) if g.numel() else 0.0)
+                check(torch.equal(g, w), f"event_kernels {shape}: {name} {k} disagrees "
+                      f"with its plain version (max abs err {err})")
+            call = lambda: fn(*a, **k)  # noqa: E731
+            n = 10 if name == "gen_peaks" else 20
+            row = dict(kernel=name, shape=list(a[0].shape), options=k, max_abs_err=err,
+                       ms=device_ms(call, n), call_ms=call_ms(call), host_ms=host_ms(call, n),
                        plain_ms=plain_ms, library_ms=None)
             if name in library:
+                # the single function too (x alone, no leading zero), held
+                # against its plain version before it is timed, beside the
+                # one PyTorch call that computes it
                 x = a[0]
-                library[name](x)
-                row["library_ms"] = cuda_ms(torch, lambda: library[name](x), 7)
-                row.update(bounds.scan_bound(*x.shape, name.split("_")[1]))
+                kind = name.split("_")[1]
+                one, one_want = fn(x), plain[name](x)
+                one_err = float((one - one_want).abs().max())
+                check(torch.equal(one, one_want), f"event_kernels {shape}: {name} of x "
+                      f"alone disagrees with its plain version (max abs err {one_err})")
+                row.update(
+                    library_ms=device_ms(lambda: library_out[name](x, **k)),
+                    library_call_ms=call_ms(lambda: library_out[name](x, **k)),
+                    single=dict(max_abs_err=one_err, ms=device_ms(lambda: fn(x)),
+                                call_ms=call_ms(lambda: fn(x)),
+                                bound_ms=bounds.scan_bound(*x.shape, kind)["bound_ms"],
+                                library_ms=device_ms(lambda: library[name](x)),
+                                library_call_ms=call_ms(lambda: library[name](x))),
+                    **bounds.scan_bound(*x.shape, kind, squares=k.get("squares", False),
+                                        lead_zero=k.get("lead_zero", False)))
             elif name == "gen_peaks":
                 n_live = int(a[2].clamp(0, l).max())
                 row.update(n_live=n_live, **bounds.peaks_bound(b, l, n_live, lat))
@@ -917,10 +958,13 @@ def phase_event_kernels(torch, dev) -> dict:
                                                                       n_live, lat))
             rows.append(row)
         check(sorted(r["kernel"] for r in rows) == sorted(
-            ["gen_peaks", "diff_filter"] + ["ordered_cumsum"] * 3 + ["ordered_sum"] * 2),
+            ["gen_peaks", "diff_filter"] + ["ordered_cumsum"] * 2 + ["ordered_sum"]),
             f"event_kernels {shape}: unexpected calls {[r['kernel'] for r in rows]}")
         line = dict(shape=shape, preset=preset, b=b, l=l, e_cap=e_cap,
-                    mean_events=float(n_ev.float().mean()), calls=rows)
+                    mean_events=float(n_ev.float().mean()), calls=rows,
+                    l2="warm: the same inputs every launch (at 4000 a call's inputs "
+                       "and outputs fit the 50 MB L2 cache; ava's prefix sums, "
+                       "88 MB, do not)")
         emit({"phase": "event_kernels", **line})
         out["shapes"][shape] = line
     (ops4, syncs4), (ops8, syncs8) = (stage_ops(torch, dev, l) for l in (4000, 8000))
@@ -1010,7 +1054,10 @@ def phase_k4(torch, dev) -> dict:
     check(all(v["local"] == 0 and v["shfl"] == 0 for v in regs.values()),
           f"k4: the register form uses local memory or shuffles: {regs}")
     check(sass["lat_chain"]["max"] >= flo.LAT_K
-          and sass["lat_redux"]["redux"] >= flo.LAT_REDUX,
+          and sass["lat_redux"]["redux"] >= flo.LAT_REDUX
+          and sass["lat_fsel<maj>"]["plop3"] >= flo.LAT_SEL
+          and sass["lat_fsel<xor>"]["plop3"] == 0
+          and min(sass[f"lat_fsel<{k}>"]["fsetp"] for k in ("maj", "xor")) >= 3 * flo.LAT_SEL,
           f"k4: the latency kernels are folded: {sass}")
     out = dict(latencies=lat, checks=checks, per_iter=per_iter,
                entry_point_output=lines, launches=launches, sass=sass)
@@ -1951,15 +1998,28 @@ def main(argv=None) -> int:
             calls = {c: [r for r in line["calls"] if r["kernel"] == name]
                      for c, line in shapes.items()}
             row = calls["viral"][0]
+            # the ordered sums' row times the call the stage makes (its
+            # options: a value and its square, a leading zero) beside the
+            # PyTorch calls that give the same outputs; the single function
+            # (x alone, one PyTorch call) stands beside it under `single`
+            scan = "single" in row
             kernels.append({
                 "name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches[name],
                 "max_abs_err": max(r["max_abs_err"] for c in calls.values() for r in c),
-                "ms": row["ms"], "plain_ms": row["plain_ms"],
-                "bound_ms": row["bound_ms"], "bound_by": bound_by(row),
+                "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": "bytes" if scan else bound_by(row),
                 "library_ms": row["library_ms"],
-                **{c: {k: calls[c][0][k] for k in ("shape", "ms", "plain_ms", "bound_ms",
-                                                   "library_ms")}
+                "call_ms": row["call_ms"], "host_ms": row["host_ms"],
+                **({"options": row["options"],
+                    "library_of": "torch.sum / torch.cumsum of x (and of x * x), "
+                                  "padded with the leading zero",
+                    "single": row["single"]} if scan else {}),
+                "as_called": {c: [{k: r[k] for k in ("options", "shape", "ms", "call_ms",
+                                                     "host_ms", "bound_ms", "library_ms",
+                                                     "library_call_ms", "single") if k in r}
+                                  for r in rs] for c, rs in calls.items()},
+                **{c: {k: calls[c][0][k] for k in ("shape", "ms", "bound_ms", "library_ms")}
                    for c in ("sensitive", "ava")},
             })
         emit({"kernels": kernels,

@@ -121,7 +121,8 @@ def load_library() -> ctypes.CDLL:
 def load_host_library(name: str) -> ctypes.CDLL:
     """A kernel's header built for the host with g++: csrc/<name>_host.cpp
     (chain_backtrack: rh_bt_serial, rh_bt_rounds; events_peaks:
-    rh_peaks_host; ordered_scan: rh_cumsum_host, rh_sum_host; diff_filter:
+    rh_peaks_host; ordered_scan: rh_prefix_host, rh_sum_host,
+    rh_scan_plan_host; diff_filter:
     rh_diff_filter_host; fill_loop_probe: rh_probe_serial, rh_probe_warp,
     rh_probe_chain1), cached by a hash of its sources under
     build/rawhash_tpu_torch/host, loaded once per process."""
@@ -146,9 +147,9 @@ def load_host_library(name: str) -> ctypes.CDLL:
 
 def kernel(name: str, argtypes: list):
     """The library's C entry `name` (it returns a CUDA error code), with its
-    argument types set, once per process."""
-    with _LOCK:
-        fn = _FNS.get(name)
+    argument types set, once per process (after that, a dict read: the
+    wrappers call it on every launch)."""
+    fn = _FNS.get(name)
     if fn is None:
         fn = getattr(load_library(), name)
         fn.restype = ctypes.c_int

@@ -91,6 +91,7 @@ struct Launch {
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kLatK = 60;       // chain steps an iteration (lat_chain, lat_rate)
 constexpr int kLatRedux = 16;   // dependent REDUX an iteration (lat_redux)
+constexpr int kLatSel = 16;     // compare-combine-select steps an iteration (lat_fsel)
 constexpr int kRateThreads = 1024;  // 4 chains a thread, 2 blocks an SM
 
 // one warp, n iterations of a kLatK-step chain a lane
@@ -140,6 +141,35 @@ __global__ void __launch_bounds__(32)
   if (threadIdx.x == 0) *cycles = t1 - t0;
 }
 
+// one warp, n iterations of kLatSel dependent steps of the peak detector's
+// kind, a select of the carried value on predicates of its compares:
+// MAJ, the majority of three compares (nvcc 12.8 for sm_90a: FSETP ->
+// FSETP.OR -> FSETP.AND -> PLOP3 -> FSEL a step), else their exclusive or
+// (FSETP -> FSETP.XOR -> FSETP.XOR -> FSEL: the same chain without the
+// PLOP3).  profiling/fill_loop_overhead.py::measure_latencies takes the
+// FSETP -> PLOP3 -> SEL chain from the two.
+template <bool MAJ>
+__global__ void __launch_bounds__(32)
+    lat_fsel(const int* in, int* out, long long* cycles, int n) {
+  float x = (float)in[threadIdx.x];
+  const float a = (float)in[31], b = (float)in[29], y = (float)in[30],
+              e = (float)in[28];
+  const long long t0 = clock64();
+  for (int i = 0; i < n; ++i) {
+#pragma unroll
+    for (int u = 0; u < kLatSel; ++u) {
+      const bool p1 = x > a - (float)u, p2 = x < b + (float)u,
+                 p3 = x > e + (float)u;
+      const bool q = MAJ ? (p1 && p2) || (p2 && p3) || (p1 && p3) : p1 ^ p2 ^ p3;
+      x = q ? y - (float)u : x;
+    }
+  }
+  asm volatile("" ::"f"(x));
+  const long long t1 = clock64();
+  out[threadIdx.x] = (int)x;
+  if (threadIdx.x == 0) *cycles = t1 - t0;
+}
+
 // every SM full (2 blocks of 1024 threads), 4 independent kLatK-step chains a
 // thread, n iterations; each block's (SM id, first clock, last clock)
 __global__ void __launch_bounds__(kRateThreads, 2)
@@ -181,8 +211,9 @@ extern "C" int rh_fill_loop_probe(const int* x, int* out, int w, int b,
 // The card's latencies and int32 rate, in SM clock cycles, on `stream`:
 // in holds 33 ints (32 lane values, then the carry), out blocks * 1024.
 // cycles[0], [1]: lat_chain at n and 2n iterations; [2], [3]: lat_redux;
-// [4], [5]: lat_shfl; then lat_rate's (SM, start, end) for each of `blocks`
-// blocks of n_rate iterations.  Returns the first launch error, or 0.
+// [4], [5]: lat_shfl; [6], [7]: lat_fsel<true>; [8], [9]: lat_fsel<false>;
+// then lat_rate's (SM, start, end) for each of `blocks` blocks of n_rate
+// iterations.  Returns the first launch error, or 0.
 extern "C" int rh_probe_latencies(const int* in, int* out, long long* cycles,
                                   int n, int n_rate, int blocks, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
@@ -190,9 +221,11 @@ extern "C" int rh_probe_latencies(const int* in, int* out, long long* cycles,
     lat_chain<<<1, 32, 0, s>>>(in, out, cycles + k, n << k);
     lat_redux<<<1, 32, 0, s>>>(in, out, cycles + 2 + k, n << k);
     lat_shfl<<<1, 32, 0, s>>>(in, out, cycles + 4 + k, n << k);
+    lat_fsel<true><<<1, 32, 0, s>>>(in, out, cycles + 6 + k, n << k);
+    lat_fsel<false><<<1, 32, 0, s>>>(in, out, cycles + 8 + k, n << k);
     const int rc = (int)cudaGetLastError();
     if (rc) return rc;
   }
-  lat_rate<<<blocks, kRateThreads, 0, s>>>(in, out, cycles + 6, n_rate);
+  lat_rate<<<blocks, kRateThreads, 0, s>>>(in, out, cycles + 10, n_rate);
   return (int)cudaGetLastError();
 }

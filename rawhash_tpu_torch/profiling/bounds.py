@@ -240,17 +240,25 @@ def backtrack_bytes(work: dict, b: int) -> float:
 
 
 # The dependent instructions a position or an event needs, one after the
-# other, in the serial scans (one thread a read), each priced at the
-# dependent-issue latency the card measured (`measure_latencies`'s
-# viaddmnmx: Hopper's integer and fp32 ALU instructions share that
-# latency).  Counted along the carried value of csrc/events_peaks.cuh's
-# long detector: the short detector's reset select, cur > val, the new
-# maximum's select, its drop (pv2 - cur), the drop test joined with the
-# valid flag, the next value's select.  Along csrc/diff_filter.cuh's last
-# kept value: v - last, the |.| >= diff test, the select.  Fewer than the
-# source has, so the bound stays a lower one.
-PEAKS_CHAIN = 6
+# other, in the serial scans (one thread a read), by class, each priced at
+# the dependent-issue latency the card measured (`measure_latencies`):
+# "viaddmnmx", an integer or fp32 ALU instruction (Hopper's share that
+# latency), and "fsetp_plop3_sel", an fp32 compare, a predicate op and a
+# select in a row.  The peak detector (K5) runs its two detectors on two
+# warps, so its chain is one detector's a position, counted along the short
+# one's carried value (csrc/events_peaks.cuh): the drop val - cur, then its
+# test, the predicate ops that join it into the take, and the select of
+# the new value (the further predicate ops of the take left out).  Along
+# csrc/diff_filter.cuh's last kept value: v - last, the |.| >= diff test,
+# the select.  Fewer than the source has, so the bound stays a lower one.
+PEAKS_CHAIN = {"viaddmnmx": 1, "fsetp_plop3_sel": 1}
 DIFF_CHAIN = 3
+
+
+def chain_cycles(chain: dict, lat: dict) -> float:
+    """Cycles of one step of a chain counted by class (PEAKS_CHAIN), at the
+    card's latencies."""
+    return sum(n * lat[cls] for cls, n in chain.items())
 
 
 def peaks_bound(b: int, l: int, n_live: int, lat: dict | None = None) -> dict:
@@ -259,7 +267,7 @@ def peaks_bound(b: int, l: int, n_live: int, lat: dict | None = None) -> dict:
     with the card's latencies, the critical path of the longest row's
     n_live positions (the largest n_sig, clamped to L)."""
     return bound(16.0 * b * l + 4.0 * b, critical_path=None if lat is None else
-                 n_live * PEAKS_CHAIN * lat["viaddmnmx"])
+                 n_live * chain_cycles(PEAKS_CHAIN, lat))
 
 
 def diff_filter_bound(b: int, e: int, n_live: int, lat: dict | None = None) -> dict:
@@ -285,8 +293,14 @@ def scan_adds(n: int, kind: str) -> int:
     return adds
 
 
-def scan_bound(b: int, l: int, kind: str) -> dict:
+def scan_bound(b: int, l: int, kind: str, squares: bool = False,
+               lead_zero: bool = False) -> dict:
     """The ordered prefix sum's or sum's (K6) bound on [B, L] f32: each row
-    read once and its sums written (4 B L, or 4 B), and its adds."""
-    out = 4.0 * b * (l if kind == "cumsum" else 1)
-    return bound(4.0 * b * l + out, fp32=float(b * scan_adds(l, kind)))
+    read once and its sums written (4 B L, or 4 B), and its adds; squares:
+    the sums of the squares too, in the same pass (the outputs and the adds
+    twice, and a multiply a value); lead_zero: the prefix sum's rows with a
+    0 in front (4 B more a row)."""
+    k = 2 if squares else 1
+    out = 4.0 * b * k * (l + int(lead_zero) if kind == "cumsum" else 1)
+    return bound(4.0 * b * l + out,
+                 fp32=float(b * (k * scan_adds(l, kind) + (l if squares else 0))))

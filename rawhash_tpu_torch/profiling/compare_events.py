@@ -24,8 +24,15 @@ JSON line per workload (all of them, or those named):
             --pipeline-depth 1 and 3: seconds of each;
   peaks     the peak detector's kernel (`_gen_peaks` on CUDA tensors) of
             both checkouts, where the other has one, on the t-statistics of
-            256 reads at 4000 and 28672 positions: ms by CUDA events (the
-            median of 7 a run); the emissions must be equal;
+            256 reads at 4000 and 28672 positions: device ms
+            (kernel_time.device_ms: 4 launches in a CUDA graph, the median
+            of 5 replays a run); the emissions must be equal; and each
+            kernel's SASS opcodes;
+  scans     the ordered sums of both checkouts at 256 x 4000 and 256 x
+            28672 (kernel_time.scan_times: the sum and the prefix sum of one
+            input, torch.sum and torch.cumsum beside them, and the stage's
+            calls of one chunk; device, call and host ms), two runs each;
+            the stage's sums must be equal;
   busy      one D1 batch of this checkout under torch.profiler: the share of
             the wall time in which the card ran a kernel (the union of the
             kernels' intervals over the wall time).
@@ -46,6 +53,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from .. import _build as this_build
 from .. import synthetic
 from ..map import device_step, engine as eng_mod
 from ..signal import events as this_events
@@ -175,8 +183,10 @@ def compare_fixture(mods) -> dict:
 
 
 def compare_peaks(mods) -> dict:
-    """The peak detector's kernel of both checkouts, in turns."""
-    from .compare_backtrack import cuda_ms
+    """The peak detector's kernel of both checkouts, in turns: device time
+    (kernel_time.device_ms), and each kernel's SASS opcodes."""
+    from .fill_loop_overhead import sass_ops
+    from .kernel_time import device_ms
 
     out = {"workload": "peaks", "equal": True, "shapes": {}}
     if not hasattr(mods["other"]["events"]._gen_peaks, "launches"):
@@ -193,10 +203,36 @@ def compare_peaks(mods) -> dict:
         out["equal"] &= torch.equal(fns["this"](), fns["other"]())
         ms = {"this": [], "other": []}
         for who in ORDER:
-            ms[who].append(cuda_ms(fns[who], 7))
+            ms[who].append(device_ms(fns[who], 4))
         s = summary(ms)
         out["shapes"][str(l)] = {"ms": s,
                                  "speedup": s["other"]["median"] / s["this"]["median"]}
+    out["sass"] = {who: sass_ops(m["build"].build(), "events_peaks_kernel")
+                   for who, m in mods.items()}
+    return out
+
+
+def compare_scans(mods) -> dict:
+    """The ordered sums (K6) of both checkouts, in turns, at the events
+    stage's shapes: each single call and the stage's calls of one chunk,
+    device time, call time and host time (kernel_time.scan_times); the
+    outputs must be equal."""
+    from .kernel_time import scan_inputs, scan_times, stage_scans
+
+    out = {"workload": "scans", "equal": True, "shapes": {}}
+    for l in PEAKS_L:
+        x = scan_inputs(l)
+        got = {who: tensors(stage_scans(m["events"], *x)) for who, m in mods.items()}
+        out["equal"] &= all(torch.equal(a, c) for a, c in zip(got["this"], got["other"]))
+        del got
+        runs = {"this": [], "other": []}
+        for who in ORDER[:4]:
+            runs[who].append(scan_times(mods[who]["events"], l))
+        keys = {(k, t) for r in runs["this"] for k, v in r.items() for t in v
+                if t.endswith("_ms")}
+        out["shapes"][str(l)] = {
+            f"{k} {t}": summary({who: [r[k][t] for r in rs] for who, rs in runs.items()})
+            for k, t in sorted(keys)}
     return out
 
 
@@ -238,7 +274,7 @@ def device_busy() -> dict:
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    names = ("events", *CELLS, "fixture", "peaks", "busy")
+    names = ("events", *CELLS, "fixture", "peaks", "scans", "busy")
     if not argv or any(a not in names for a in argv[1:]):
         print("usage: python -m rawhash_tpu_torch.profiling.compare_events "
               f"OTHER_CHECKOUT [{' '.join(names)}]", file=sys.stderr)
@@ -254,14 +290,16 @@ def run(other: Path, names) -> int:
     outputs and records were equal."""
     load_other(other, "map.engine")
     mods = {"this": {"step": device_step, "events": this_events,
-                     "engine": eng_mod.MappingEngine},
+                     "engine": eng_mod.MappingEngine, "build": this_build},
             "other": {"step": sys.modules[f"{OTHER}.map.device_step"],
                       "events": sys.modules[f"{OTHER}.signal.events"],
-                      "engine": sys.modules[f"{OTHER}.map.engine"].MappingEngine}}
+                      "engine": sys.modules[f"{OTHER}.map.engine"].MappingEngine,
+                      "build": sys.modules[f"{OTHER}._build"]}}
     workloads = {"events": lambda: compare_events(mods),
                  **{c: (lambda c=c: compare_cell(c, mods)) for c in CELLS},
                  "fixture": lambda: compare_fixture(mods),
-                 "peaks": lambda: compare_peaks(mods), "busy": device_busy}
+                 "peaks": lambda: compare_peaks(mods), "scans": lambda: compare_scans(mods),
+                 "busy": device_busy}
     print(card(), flush=True)
     ok = True
     for name in names:

@@ -110,8 +110,10 @@ fill_loop_probe.launches = 0
 
 
 # The latency kernels' counts (csrc/fill_loop_probe.cu: kLatK, kLatRedux,
-# kRateThreads; lat_rate runs 4 chains a thread)
-LAT_K, LAT_REDUX, RATE_THREADS, RATE_CHAINS = 60, 16, 1024, 4
+# kLatSel, kRateThreads; lat_rate runs 4 chains a thread)
+LAT_K, LAT_REDUX, LAT_SEL, RATE_THREADS, RATE_CHAINS = 60, 16, 16, 1024, 4
+# the latency kernels' cycle counters before lat_rate's (SM, start, end)s
+LAT_SLOTS = 10
 
 
 def measure_latencies(n: int = 1024, n_rate: int = 64) -> dict:
@@ -119,7 +121,14 @@ def measure_latencies(n: int = 1024, n_rate: int = 64) -> dict:
     (csrc/fill_loop_probe.cu: rh_probe_latencies), each from runs of n and
     2n iterations so that the fixed cost cancels: `viaddmnmx`, a dependent
     step r = max(r + 1, acc); `redux`, a dependent __reduce_max_sync;
-    `shfl_colmax`, a column max of 5 __shfl_xor_sync rounds and maxes.
+    `shfl_colmax`, a column max of 5 __shfl_xor_sync rounds and maxes;
+    `fsetp_plop3_sel`, an fp32 compare, a predicate op and a select in a
+    row (the peak detector's kind of chain), from two probes of three
+    compares and a select a step: `fsel_maj`, a step whose select takes
+    the majority of the compares (FSETP -> FSETP -> FSETP -> PLOP3 -> FSEL,
+    `sass_counts`'s "lat_fsel<maj>"), less two of its FSETPs, each priced
+    at a quarter of `fsel_xor`, the step that takes their exclusive or
+    (FSETP -> FSETP -> FSETP -> FSEL, "lat_fsel<xor>").
     `int32_per_sm_per_clock`: the steps every SM retires a clock with two
     blocks of 1024 threads, 4 independent chains a thread (the median over
     the SMs; `sms` of them ran blocks).  Needs a card."""
@@ -130,7 +139,7 @@ def measure_latencies(n: int = 1024, n_rate: int = 64) -> dict:
     blocks = 2 * torch.cuda.get_device_properties(dev).multi_processor_count
     inp = torch.arange(-16, 17, dtype=torch.int32, device=dev)
     out = torch.empty(blocks * RATE_THREADS, dtype=torch.int32, device=dev)
-    cyc = torch.zeros(6 + 3 * blocks, dtype=torch.int64, device=dev)
+    cyc = torch.zeros(LAT_SLOTS + 3 * blocks, dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
         rc = fn(inp.data_ptr(), out.data_ptr(), cyc.data_ptr(), n, n_rate, blocks,
                 torch.cuda.current_stream(dev).cuda_stream)
@@ -139,7 +148,7 @@ def measure_latencies(n: int = 1024, n_rate: int = 64) -> dict:
     c = cyc.tolist()
     spans = {}  # SM -> (first clock, last clock, blocks)
     for k in range(blocks):
-        sm, t0, t1 = c[6 + 3 * k: 9 + 3 * k]
+        sm, t0, t1 = c[LAT_SLOTS + 3 * k: LAT_SLOTS + 3 + 3 * k]
         lo, hi, nb = spans.get(sm, (t0, t1, 0))
         spans[sm] = (min(lo, t0), max(hi, t1), nb + 1)
     per_block = RATE_THREADS * RATE_CHAINS * LAT_K * n_rate
@@ -147,6 +156,9 @@ def measure_latencies(n: int = 1024, n_rate: int = 64) -> dict:
     return {"viaddmnmx": (c[1] - c[0]) / (n * LAT_K),
             "redux": (c[3] - c[2]) / (n * LAT_REDUX),
             "shfl_colmax": (c[5] - c[4]) / n,
+            "fsel_maj": (c[7] - c[6]) / (n * LAT_SEL),
+            "fsel_xor": (c[9] - c[8]) / (n * LAT_SEL),
+            "fsetp_plop3_sel": ((c[7] - c[6]) - (c[9] - c[8]) / 2) / (n * LAT_SEL),
             "int32_per_sm_per_clock": rates[len(rates) // 2],
             "sms": len(spans)}
 
@@ -201,15 +213,17 @@ INSTANCE_RE = re.compile(r"(probe_regs|probe_smem)I((?:Li[n0-9]+E)+)E")
 # integer max instructions of sm_90 SASS, the add-fused one (VIADDMNMX) included
 MAX_RE = re.compile(r"\bV?I(?:ADD)?MNMX3?\b")
 SASS_RES = {"max": MAX_RE, "redux": re.compile(r"\bREDUX\b"),
-            "shfl": re.compile(r"\bSHFL\b"), "local": re.compile(r"\b(?:LDL|STL)\b")}
+            "shfl": re.compile(r"\bSHFL\b"), "local": re.compile(r"\b(?:LDL|STL)\b"),
+            "fsetp": re.compile(r"\bFSETP\b"), "plop3": re.compile(r"\bPLOP3\b"),
+            "sel": re.compile(r"\bF?SEL\b")}
 
 
 def sass_counts() -> dict:
     """Per kernel instance of the built library ("regs<SPL,K>",
     "smem<K>", K = -1 for the runtime k_ops) and per latency kernel
-    ("lat_chain", ...): its integer max instructions, REDUX, SHFL and
-    local-memory loads and stores (LDL/STL) in the SASS.  Needs cuobjdump
-    beside nvcc."""
+    ("lat_chain", ..., "lat_fsel<maj>", "lat_fsel<xor>"): its integer max
+    instructions, REDUX, SHFL, local-memory loads and stores (LDL/STL),
+    FSETP, PLOP3 and (F)SEL in the SASS.  Needs cuobjdump beside nvcc."""
     dump = subprocess.run(
         [str(Path(nvcc_path()).parent / "cuobjdump"), "-sass", str(build())],
         capture_output=True, text=True, check=True, timeout=300,
@@ -224,9 +238,28 @@ def sass_counts() -> dict:
         else:
             key = next((k for k in ("lat_chain", "lat_redux", "lat_shfl", "lat_rate")
                         if k in name), None)
+            if "lat_fsel" in name:
+                key = "lat_fsel<maj>" if "ILb1E" in name else "lat_fsel<xor>"
         if key:
             counts[key] = {k: len(r.findall(func)) for k, r in SASS_RES.items()}
     return counts
+
+
+def sass_ops(library: Path, function: str) -> dict:
+    """{opcode: count} of the SASS of every kernel of `library` whose
+    mangled name holds `function` (the opcode without its modifiers, the
+    predicate guard dropped).  Needs cuobjdump beside nvcc."""
+    dump = subprocess.run(
+        [str(Path(nvcc_path()).parent / "cuobjdump"), "-sass", str(library)],
+        capture_output=True, text=True, check=True, timeout=300,
+    ).stdout
+    ops: dict = {}
+    for func in re.split(r"\n\s*Function : ", dump)[1:]:
+        if function not in func.split("\n", 1)[0]:
+            continue
+        for m in re.finditer(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", func):
+            ops[m.group(1)] = ops.get(m.group(1), 0) + 1
+    return dict(sorted(ops.items(), key=lambda kv: -kv[1]))
 
 
 def card() -> str:

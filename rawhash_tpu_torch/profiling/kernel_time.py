@@ -1,0 +1,361 @@
+"""A kernel wrapper's time on the card, three ways, and the events stage's
+kernels timed so.
+
+- `device_ms`: n back-to-back calls between one pair of CUDA events,
+  divided by n (the median of `reps` such runs).  The n calls are
+  captured once into a CUDA graph and the graph is replayed, so the card
+  runs the launches one after another with no wait for the host: the
+  window holds the kernels and the gaps between them, not the wrapper's
+  host path (a wrapper whose host path is longer than its kernel would
+  otherwise time the host).  The inputs are the same on every call, so
+  they are warm in the L2 cache wherever they fit (50 MB).
+- `call_ms`: one call between a pair of events on an idle card (the median
+  of `reps`): the window holds the wrapper's whole host path, as it does
+  for a lone call on the main path.
+- `host_ms`: the host clock around n calls without a sync, divided by n:
+  the wrapper's host path alone (the launches only queue).
+
+    python -m rawhash_tpu_torch.profiling.kernel_time [--probe]
+
+prints the card's name and power limit, then one JSON line per shape of
+the events stage (256 reads of 4000 and of 28672 samples): the ordered
+sums (K6) as the stage calls them, each beside torch.sum / torch.cumsum on
+the same input, and the peak detector (K5); then the host path of one
+ordered-sum call, piece by piece (`host_pieces`).  With --probe, also K6's
+fixed part and its level 0 apart (`scan_probe`) and where a launch's time
+goes, phase by phase, from a build of csrc/ordered_scan.cu that stamps each
+warp's clock (`scan_stamps`).  It needs an NVIDIA GPU and exits non-zero
+without one.
+"""
+
+from __future__ import annotations
+
+import inspect
+import json
+import sys
+import time
+
+import numpy as np
+import torch
+
+from .. import synthetic
+from .fill_loop_overhead import card
+
+B = 256
+SHAPES = (4000, 28672)  # viral's and sensitive's chunk, ava's whole read
+
+
+def device_ms(fn, n: int = 20, reps: int = 5) -> float:
+    """Milliseconds a call of fn() on the card: n back-to-back calls,
+    captured in a CUDA graph after one warm-up call, replayed between one
+    event pair, over n; the median of reps replays."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        graph.replay()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e) / n)
+    del graph
+    return float(np.median(times))
+
+
+def call_ms(fn, reps: int = 7) -> float:
+    """Milliseconds of one call of fn() between an event pair on an idle
+    card (the median of reps, after one warm-up)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e))
+    return float(np.median(times))
+
+
+def host_ms(fn, n: int = 50, reps: int = 5) -> float:
+    """Milliseconds of host time a call of fn(): the host clock around n
+    calls with no sync, over n (the median of reps, after one warm-up)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        times.append((time.perf_counter() - t0) * 1e3 / n)
+        torch.cuda.synchronize()
+    return float(np.median(times))
+
+
+def times(fn, n: int = 20) -> dict:
+    """{device_ms, call_ms, host_ms} of fn()."""
+    return {"device_ms": device_ms(fn, n), "call_ms": call_ms(fn),
+            "host_ms": host_ms(fn, n)}
+
+
+def fused(events) -> bool:
+    """Whether this events module's ordered sums take `squares=` (one
+    launch for a value and its square)."""
+    return "squares" in inspect.signature(events.ordered_sum).parameters
+
+
+def stage_scans(events, sig_m, normc, psum_in):
+    """The ordered sums of one chunk, as that module's detect_events_batch
+    and _segment_events call them: the sums of sig_m and its square, the
+    prefix sums (with their leading zero) of normc and its square, and the
+    prefix sum of the kept values."""
+    pad = torch.nn.functional.pad
+    if fused(events):
+        return (events.ordered_sum(sig_m, squares=True),
+                events.ordered_cumsum(normc, squares=True, lead_zero=True),
+                events.ordered_cumsum(psum_in, lead_zero=True))
+    return (events.ordered_sum(sig_m), events.ordered_sum(sig_m * sig_m),
+            pad(events.ordered_cumsum(normc), (1, 0)),
+            pad(events.ordered_cumsum(normc * normc), (1, 0)),
+            pad(events.ordered_cumsum(psum_in), (1, 0)))
+
+
+def scan_inputs(l: int, seed: int = 3) -> tuple:
+    """(sig_m, normc, psum_in) on the card: a chunk of B nanopore-like reads
+    of l samples, its clipped normalised signal as the [B, l] slice of a
+    [B, l + 1] array (the stage's layout), and sorted values with zeros."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    sig = torch.from_numpy(synthetic.signal_chunk(rng, B, l)).to(dev)
+    norm = (sig - sig.mean(1, keepdim=True)) / sig.std(1, keepdim=True)
+    wide = torch.zeros((B, l + 1), device=dev)
+    wide[:, :l] = norm.clamp(-2.9, 2.9)
+    vals = torch.sort(wide[:, :l], dim=1).values
+    keep = torch.from_numpy(rng.random((B, l)) < 0.9).to(dev)
+    return sig, wide[:, :l], torch.where(keep, vals, 0.0).contiguous()
+
+
+def scan_times(events, l: int) -> dict:
+    """The ordered sums of `events` at B x l: each single call (the sum and
+    the prefix sum of one input) beside torch.sum / torch.cumsum on the same
+    input, and the stage's calls of one chunk together."""
+    sig_m, normc, psum_in = scan_inputs(l)
+    out = {
+        "ordered_sum": times(lambda: events.ordered_sum(sig_m)),
+        "torch.sum": times(lambda: torch.sum(sig_m, dim=1)),
+        "ordered_cumsum": times(lambda: events.ordered_cumsum(normc)),
+        "torch.cumsum": times(lambda: torch.cumsum(normc, dim=1)),
+        "stage": times(lambda: stage_scans(events, sig_m, normc, psum_in)),
+    }
+    out["stage"]["launches"] = 3 if fused(events) else 5
+    return out
+
+
+def peaks_times(events, l: int) -> dict:
+    """The peak detector of `events` on the t-statistics of B reads of l
+    positions, every read live to its end."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(l)
+    n_sig = np.full(B, l, np.int32)
+    args = [torch.from_numpy(x).to(dev)
+            for x in (*synthetic.event_tstats(rng, B, l, n_sig, 3, 9), n_sig)]
+    prm = dict(t1=4.0, t2=3.5, w1=3, w2=9, peak_height=0.4)
+    return times(lambda: events._gen_peaks(*args, **prm), n=4)
+
+
+PROBE_ROWS = (1, 8, 33, 66, 132, 256)
+
+
+def scan_probe(l: int) -> dict:
+    """K6's fixed part and its level 0 apart, at rows of l values: the device
+    ms of each ordered sum (the sum and the prefix sum of one input, and
+    the calls that take a value and its square) and of torch.sum /
+    torch.cumsum at 1 to 256 rows (PROBE_ROWS).  One row is the fixed part:
+    a launch, the copies of a row's first rounds, its rounds one after
+    another on its warps and the levels above it on the first warp; the
+    time a row past that is level 0's cost at the card's rate.  `floor` is
+    256 rows of 32 values, the top level alone: a launch and a store."""
+    from ..signal import events
+
+    sig_m, normc, _ = scan_inputs(l)
+    fns = {
+        "ordered_sum": lambda x: events.ordered_sum(x),
+        "ordered_sum_sq": lambda x: events.ordered_sum(x, squares=True),
+        "torch.sum": lambda x: torch.sum(x, dim=1),
+        "ordered_cumsum": lambda x: events.ordered_cumsum(x),
+        "ordered_cumsum_sq_lead": lambda x: events.ordered_cumsum(x, squares=True,
+                                                                  lead_zero=True),
+        "torch.cumsum": lambda x: torch.cumsum(x, dim=1),
+    }
+    out = {}
+    for name, fn in fns.items():
+        x = sig_m if "sum" in name and "cumsum" not in name else normc
+        out[name] = {b: device_ms(lambda: fn(x[:b])) for b in PROBE_ROWS}
+        out[name]["floor"] = device_ms(lambda: fn(x[:, :32]))
+    return out
+
+
+STAMPS, EXIT, SM = 9, 7, 8  # words a warp, its exit and SM-id slots (ordered_scan.cu)
+# the clock slots' phases: the sum's slot 5 is the levels above on the
+# first warp; the prefix sum's 5 follows the second barrier, 6 the down-sweep
+PHASES = {2: "first_round", 3: "level0", 4: "barrier", 5: "levels", 6: "down"}
+
+
+def stamp_library():
+    """csrc/ordered_scan.cu built with -DRH_SCAN_STAMPS (its kernels stamp
+    each warp's clock at their phases), cached by the source's hash under
+    build/rawhash_tpu_torch/stamps."""
+    import ctypes
+    import hashlib
+
+    from .._build import BUILD_DIR, CSRC, NVCC_FLAGS, _run, nvcc_path
+
+    srcs = (CSRC / "ordered_scan.cu", CSRC / "ordered_scan.cuh")
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in srcs:
+        h.update(src.read_bytes())
+    so = BUILD_DIR / "stamps" / f"ordered_scan_stamps_{h.hexdigest()[:16]}.so"
+    if not so.exists():
+        so.parent.mkdir(parents=True, exist_ok=True)
+        _run([[nvcc_path(), *NVCC_FLAGS, "-DRH_SCAN_STAMPS", "-shared", "-o", str(so),
+               str(srcs[0])]])
+    lib = ctypes.CDLL(str(so))
+    P, LL, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    for name, args in (("rh_ordered_prefix", [P, LL, P, P, LL, I, I, I, P]),
+                       ("rh_ordered_sum", [P, LL, P, P, I, I, P]),
+                       ("rh_scan_set_stamps", [P])):
+        getattr(lib, name).argtypes = args
+        getattr(lib, name).restype = I
+    return lib
+
+
+def _phases(st: np.ndarray) -> dict:
+    """The stamps of one launch [warps, STAMPS] -> the launch's span and
+    start skew (ns, global timer), the SMs it ran on and the most and
+    fewest warps an SM took, and each phase's median and max over the warps
+    that reach it (SM clock cycles)."""
+    live = st[st[:, 1] != 0]
+    per_sm = np.bincount(live[:, SM].astype(np.int64))
+    per_sm = per_sm[per_sm > 0]
+    out = {"warps": int(len(live)), "sms": int(len(per_sm)),
+           "warps_per_sm": [int(per_sm.min()), int(per_sm.max())],
+           "span_ns": int(live[:, EXIT].max() - live[:, 0].min()),
+           "start_skew_ns": int(live[:, 0].max() - live[:, 0].min()),
+           "warp_ns_median": float(np.median(live[:, EXIT] - live[:, 0]))}
+    prev = live[:, 1]
+    for slot, name in PHASES.items():
+        ok = (live[:, slot] != 0) & (prev != 0)
+        if ok.any():
+            d = (live[ok, slot] - prev[ok]).astype(np.float64)
+            out[f"{name}_cycles"] = {"median": float(np.median(d)), "max": float(d.max())}
+        prev = np.where(live[:, slot] != 0, live[:, slot], prev)
+    return out
+
+
+def scan_stamps(l: int) -> dict:
+    """Where a K6 launch's time goes at rows of l values, from the stamp
+    build: for the sum and the prefix sum of one input and of a value and
+    its square, at 1 and 256 rows, the phases of `_phases` (the second of
+    two launches, the first a warm-up)."""
+    import ctypes
+
+    lib = stamp_library()
+    sig_m, normc, _ = scan_inputs(l)
+    out_rows = torch.empty((2, B, l + 1), device="cuda")
+    out_sums = torch.empty((2, B), device="cuda")
+    stamps = torch.zeros((B + 3) * 8 * STAMPS, dtype=torch.int64, device="cuda")
+    assert lib.rh_scan_set_stamps(ctypes.c_void_p(stamps.data_ptr())) == 0
+    res = {}
+    try:
+        for b in (1, B):
+            for name in ("sum", "sum_sq", "cumsum", "cumsum_sq_lead"):
+                sq = name != "sum" and name != "cumsum"
+                stream = torch.cuda.current_stream().cuda_stream
+                if name.startswith("sum"):
+                    call = lambda: lib.rh_ordered_sum(  # noqa: E731
+                        sig_m.data_ptr(), sig_m.stride(0), out_sums[0].data_ptr(),
+                        out_sums[1].data_ptr() if sq else None, b, l, stream)
+                else:
+                    call = lambda: lib.rh_ordered_prefix(  # noqa: E731
+                        normc.data_ptr(), normc.stride(0), out_rows[0].data_ptr(),
+                        out_rows[1].data_ptr() if sq else None, l + 1, int(sq), b, l,
+                        stream)
+                assert call() == 0
+                torch.cuda.synchronize()
+                stamps.zero_()
+                assert call() == 0
+                torch.cuda.synchronize()
+                res[f"{name} b{b}"] = _phases(stamps.view(-1, STAMPS).cpu().numpy())
+    finally:
+        lib.rh_scan_set_stamps(None)
+    return res
+
+
+def _with(lock) -> None:
+    with lock:
+        pass
+
+
+def host_pieces(n: int = 2000) -> dict:
+    """Microseconds a call of each piece of an ordered sum's host path on a
+    [B, 4000] CUDA tensor (timeit over n calls)."""
+    import timeit
+
+    from .._build import check_operand
+    from ..signal import events
+
+    x = torch.zeros((B, 4000), device="cuda")
+    dev = x.device
+    pieces = {
+        "check_operand": lambda: check_operand("f", "x", x, torch.float32, x.shape, dev,
+                                               strided_rows=True),
+        "torch.empty": lambda: torch.empty((B, 4001), dtype=torch.float32, device=dev),
+        "current_device": lambda: dev.index == torch.cuda.current_device(),
+        "current_stream": lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "data_ptr_stride": lambda: (x.data_ptr(), x.stride(0)),
+        "count_lock": lambda: _with(events.COUNT_LOCK),
+        "ordered_sum": lambda: events.ordered_sum(x),
+        "ordered_cumsum_sq_lead": lambda: events.ordered_cumsum(x, squares=True,
+                                                                lead_zero=True),
+        "torch.sum": lambda: torch.sum(x, dim=1),
+    }
+    out = {}
+    for name, fn in pieces.items():
+        fn()
+        torch.cuda.synchronize()
+        out[name] = timeit.timeit(fn, number=n) / n * 1e6
+        torch.cuda.synchronize()
+    return out
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if not torch.cuda.is_available():
+        print("kernel_time: needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    from ..signal import events
+
+    print(card(), flush=True)
+    for l in SHAPES:
+        print(json.dumps({"b": B, "l": l, "scans": scan_times(events, l),
+                          "gen_peaks": peaks_times(events, l)}), flush=True)
+    print(json.dumps({"host_us": host_pieces()}), flush=True)
+    if "--probe" in argv:
+        for l in SHAPES:
+            print(json.dumps({"l": l, "probe_device_ms": scan_probe(l)}), flush=True)
+            print(json.dumps({"l": l, "stamps": scan_stamps(l)}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -86,27 +86,42 @@ def _seq_scan(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def ordered_cumsum_plain(x: torch.Tensor) -> torch.Tensor:
-    """Row-wise f32 inclusive prefix sum [B, L] in the reference's order:
-    sequential sums inside blocks of 16, the block totals scanned the same
-    way recursively, each block offset by the exclusive prefix of the
-    totals (the blocked scan XLA's CPU backend emits for jnp.cumsum)."""
+def _cumsum_blocks(x: torch.Tensor) -> torch.Tensor:
+    """The blocked prefix sum of ordered_cumsum_plain, without options."""
     b, n = x.shape
     if n <= 16:
         return _seq_scan(x) if n else x.clone()
     m = -(-n // 16) * 16
     xp = torch.nn.functional.pad(x, (0, m - n)).reshape(b, m // 16, 16)
     inner = _seq_scan(xp)
-    tot = ordered_cumsum_plain(inner[:, :, -1].contiguous())
+    tot = _cumsum_blocks(inner[:, :, -1].contiguous())
     excl = torch.nn.functional.pad(tot[:, :-1], (1, 0))
     return (inner + excl[:, :, None]).reshape(b, m)[:, :n]
 
 
-def ordered_sum_plain(x: torch.Tensor) -> torch.Tensor:
+def ordered_cumsum_plain(x: torch.Tensor, *, squares: bool = False,
+                         lead_zero: bool = False):
+    """Row-wise f32 inclusive prefix sum [B, L] in the reference's order:
+    sequential sums inside blocks of 16, the block totals scanned the same
+    way recursively, each block offset by the exclusive prefix of the
+    totals (the blocked scan XLA's CPU backend emits for jnp.cumsum).
+    lead_zero: [B, L + 1] with a 0 in front.  squares: the pair (of x, of
+    x * x), each as the single call gives it."""
+    if squares:
+        return (ordered_cumsum_plain(x, lead_zero=lead_zero),
+                ordered_cumsum_plain(x * x, lead_zero=lead_zero))
+    out = _cumsum_blocks(x)
+    return torch.nn.functional.pad(out, (1, 0)) if lead_zero else out
+
+
+def ordered_sum_plain(x: torch.Tensor, *, squares: bool = False):
     """Row-wise f32 sum [B, L] -> [B] in the reference's order: while a row
     is longer than 32, pad it (half the padding in front) to a multiple of
     32 and replace it by the sequential sums of its 32-wide windows; then
-    sum what is left sequentially (XLA's CPU tree reduction)."""
+    sum what is left sequentially (XLA's CPU tree reduction).  squares: the
+    pair (of x, of x * x), each as the single call gives it."""
+    if squares:
+        return ordered_sum_plain(x), ordered_sum_plain(x * x)
     while x.shape[1] > 32:
         p = -x.shape[1] % 32
         x = torch.nn.functional.pad(x, (p // 2, p - p // 2))
@@ -121,46 +136,84 @@ def ordered_sum_plain(x: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def _ordered(fn, entry: str, plain, x: torch.Tensor, out_shape) -> torch.Tensor:
-    """An ordered sum's wrapper: check x (f32 [B, L], rows contiguous), then
-    plain(x) on CPU tensors, the kernel `entry` on CUDA tensors."""
-    if x.dim() != 2:
-        raise ValueError(f"{fn.__name__}: x must be 2-D, got {tuple(x.shape)}")
-    check_operand(fn.__name__, "x", x, torch.float32, x.shape, x.device,
-                  strided_rows=True)
-    dev = x.device
-    if dev.type == "cpu":
-        return plain(x)
-    if dev.type != "cuda":
-        raise ValueError(f"{fn.__name__}: unsupported device {dev}")
-    b, l = x.shape
-    out = torch.empty(out_shape, dtype=torch.float32, device=dev)
-    if b == 0 or l == 0:
-        return out.zero_()
-    with torch.cuda.device(dev):
-        rc = kernel(entry, [_P, _LL, _P, _I, _I, _P])(
-            x.data_ptr(), x.stride(0), out.data_ptr(), b, l,
-            torch.cuda.current_stream(dev).cuda_stream)
+# the kernels' C entries' argument types
+_ARGTYPES = {
+    "rh_ordered_prefix": [_P, _LL, _P, _P, _LL, _I, _I, _I, _P],
+    "rh_ordered_sum": [_P, _LL, _P, _P, _I, _I, _P],
+    "rh_events_peaks": [_P] * 4 + [_I] * 2 + [_F] * 3 + [_I] * 3 + [_P],
+    "rh_diff_filter": [_P] * 3 + [_I] * 2 + [_F, _P],
+}
+
+
+def launch_counted(fn, entry: str, dev: torch.device, *args) -> None:
+    """Launch the kernel `entry` with args and dev's current stream; raise
+    if the launch fails, else count it on fn."""
+    c_fn = kernel(entry, _ARGTYPES[entry])
+    # the raw handle of dev's current stream (torch.cuda.current_stream's,
+    # without building a Stream object: a few microseconds a call)
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    if dev.index == torch.cuda.current_device():
+        rc = c_fn(*args, stream)
+    else:
+        with torch.cuda.device(dev):
+            rc = c_fn(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{fn.__name__} kernel launch failed: CUDA error {rc}")
     with COUNT_LOCK:
         fn.launches += 1
-    return out
 
 
-def ordered_cumsum(x: torch.Tensor) -> torch.Tensor:
+def _check_rows(fn, x: torch.Tensor) -> None:
+    """x must be f32 [B, L] with contiguous rows (any row stride)."""
+    if x.dim() != 2:
+        raise ValueError(f"{fn.__name__}: x must be 2-D, got {tuple(x.shape)}")
+    check_operand(fn.__name__, "x", x, torch.float32, x.shape, x.device,
+                  strided_rows=True)
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{fn.__name__}: unsupported device {x.device}")
+
+
+def ordered_cumsum(x: torch.Tensor, *, squares: bool = False,
+                   lead_zero: bool = False):
     """`ordered_cumsum_plain` of f32 [B, L] (rows contiguous, any row
-    stride): on CUDA tensors by the kernel rh_ordered_cumsum
-    (csrc/ordered_scan.cu), bit for bit."""
-    return _ordered(ordered_cumsum, "rh_ordered_cumsum", ordered_cumsum_plain, x,
-                    x.shape)
+    stride), with its options: on CUDA tensors by the kernel
+    rh_ordered_prefix (csrc/ordered_scan.cu), bit for bit, in one launch
+    (a value and its square in one pass; the leading zero written by the
+    kernel)."""
+    _check_rows(ordered_cumsum, x)
+    if x.device.type == "cpu":
+        return ordered_cumsum_plain(x, squares=squares, lead_zero=lead_zero)
+    b, l = x.shape
+    lead = int(lead_zero)
+    shape = (b, l + lead)
+    out = torch.empty(shape, dtype=torch.float32, device=x.device)
+    out_sq = torch.empty(shape, dtype=torch.float32, device=x.device) if squares else None
+    if b and l:
+        launch_counted(ordered_cumsum, "rh_ordered_prefix", x.device, x.data_ptr(),
+                x.stride(0), out.data_ptr(), out_sq.data_ptr() if squares else None,
+                l + lead, lead, b, l)
+    elif b and lead:  # no values: the leading zero alone
+        out.zero_()
+        if squares:
+            out_sq.zero_()
+    return (out, out_sq) if squares else out
 
 
-def ordered_sum(x: torch.Tensor) -> torch.Tensor:
+def ordered_sum(x: torch.Tensor, *, squares: bool = False):
     """`ordered_sum_plain` of f32 [B, L] (rows contiguous, any row stride)
-    -> [B]: on CUDA tensors by the kernel rh_ordered_sum
-    (csrc/ordered_scan.cu), bit for bit."""
-    return _ordered(ordered_sum, "rh_ordered_sum", ordered_sum_plain, x, x.shape[:1])
+    -> [B], with its options: on CUDA tensors by the kernel rh_ordered_sum
+    (csrc/ordered_scan.cu), bit for bit, in one launch (a value and its
+    square in one pass)."""
+    _check_rows(ordered_sum, x)
+    if x.device.type == "cpu":
+        return ordered_sum_plain(x, squares=squares)
+    b, l = x.shape
+    out = torch.empty(b, dtype=torch.float32, device=x.device)
+    out_sq = torch.empty(b, dtype=torch.float32, device=x.device) if squares else None
+    if b:
+        launch_counted(ordered_sum, "rh_ordered_sum", x.device, x.data_ptr(), x.stride(0),
+                out.data_ptr(), out_sq.data_ptr() if squares else None, b, l)
+    return (out, out_sq) if squares else out
 
 
 ordered_cumsum.launches = 0
@@ -317,17 +370,10 @@ def _gen_peaks(tstat1, tstat2, n_sig, t1: float, t2: float, w1: int, w2: int,
     if dev.type != "cuda":
         raise ValueError(f"_gen_peaks: unsupported device {dev}")
     out = torch.empty((b, 2 * l), dtype=torch.int32, device=dev)
-    if b == 0 or l == 0:
-        return out
-    with torch.cuda.device(dev):
-        rc = kernel("rh_events_peaks", [_P] * 4 + [_I] * 2 + [_F] * 3 + [_I] * 3 + [_P])(
-            tstat1.data_ptr(), tstat2.data_ptr(), n_sig.data_ptr(), out.data_ptr(),
-            b, l, f32(t1), f32(t2), f32(peak_height), w1, w1 // 2, w2 // 2,
-            torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"_gen_peaks kernel launch failed: CUDA error {rc}")
-    with COUNT_LOCK:
-        _gen_peaks.launches += 1
+    if b and l:
+        launch_counted(_gen_peaks, "rh_events_peaks", dev, tstat1.data_ptr(),
+                tstat2.data_ptr(), n_sig.data_ptr(), out.data_ptr(), b, l, f32(t1),
+                f32(t2), f32(peak_height), w1, w1 // 2, w2 // 2)
     return out
 
 
@@ -393,9 +439,7 @@ def _segment_events(norm, n_sig, emitted, emit_ok, n_peaks, e_cap: int):
     )
 
     # segment sums/counts as prefix-sum differences over the sorted row
-    psum = torch.nn.functional.pad(
-        ordered_cumsum(torch.where(keep_s, val_s, 0.0)), (1, 0)
-    )
+    psum = ordered_cumsum(torch.where(keep_s, val_s, 0.0), lead_zero=True)
     pcnt = torch.nn.functional.pad(torch.cumsum(keep_s.to(torch.int64), 1), (1, 0))
     ends = starts + lens
     sums = torch.gather(psum, 1, ends) - torch.gather(psum, 1, starts)
@@ -426,8 +470,9 @@ def detect_events_batch(
     valid = pos < slen[:, None]
     sig_m = torch.where(valid, sig, 0.0)
 
-    new_sum = carry.sum + ordered_sum(sig_m)
-    new_sumsq = carry.sum_sq + ordered_sum(sig_m * sig_m)
+    s, s_sq = ordered_sum(sig_m, squares=True)
+    new_sum = carry.sum + s
+    new_sumsq = carry.sum_sq + s_sq
     new_n = carry.n + slen
     nf = torch.clamp_min(new_n, 1).to(torch.float32)
     mean = new_sum / nf
@@ -437,8 +482,7 @@ def detect_events_batch(
     clip = valid & (norm < 3.0) & (norm > -3.0)
     normc, n_sig = dense_compact(norm, clip)
 
-    prefix = torch.nn.functional.pad(ordered_cumsum(normc), (1, 0))
-    prefix_sq = torch.nn.functional.pad(ordered_cumsum(normc * normc), (1, 0))
+    prefix, prefix_sq = ordered_cumsum(normc, squares=True, lead_zero=True)
     ts1 = _tstat(prefix, prefix_sq, n_sig, window_length1)
     ts2 = _tstat(prefix, prefix_sq, n_sig, window_length2)
 

@@ -7,12 +7,10 @@ into the sketch program; on CPU tensors as its plain version."""
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from .._build import check_operand, kernel
-from ..signal.events import COUNT_LOCK, dense_compact, f32
+from .._build import check_operand
+from ..signal.events import dense_compact, f32, launch_counted
 from .quantize import U32, dynamic_quantize, hash32
 
 
@@ -52,17 +50,9 @@ def _diff_filter(events: torch.Tensor, n_ev: torch.Tensor, diff: float):
     if dev.type != "cuda":
         raise ValueError(f"_diff_filter: unsupported device {dev}")
     keep = torch.empty((b, e), dtype=torch.bool, device=dev)
-    if b == 0 or e == 0:
-        return keep
-    p, i = ctypes.c_void_p, ctypes.c_int
-    with torch.cuda.device(dev):
-        rc = kernel("rh_diff_filter", [p, p, p, i, i, ctypes.c_float, p])(
-            events.data_ptr(), n_ev.data_ptr(), keep.data_ptr(), b, e, f32(diff),
-            torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"_diff_filter kernel launch failed: CUDA error {rc}")
-    with COUNT_LOCK:
-        _diff_filter.launches += 1
+    if b and e:
+        launch_counted(_diff_filter, "rh_diff_filter", dev, events.data_ptr(), n_ev.data_ptr(),
+                keep.data_ptr(), b, e, f32(diff))
     return keep
 
 

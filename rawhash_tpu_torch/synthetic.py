@@ -251,8 +251,32 @@ def event_tstats(rng: np.random.Generator, b: int, l: int, n_sig: np.ndarray,
     levels = rng.normal(0.0, 1.0, size=(b, l // 9 + 2))
     x = np.repeat(levels, 9, axis=1)[:, :l] + rng.normal(0, 0.15, (b, l))
     norm = torch.from_numpy(x.astype(np.float32))
-    prefix = torch.nn.functional.pad(ev.ordered_cumsum_plain(norm), (1, 0))
-    prefix_sq = torch.nn.functional.pad(ev.ordered_cumsum_plain(norm * norm), (1, 0))
+    prefix, prefix_sq = ev.ordered_cumsum_plain(norm, squares=True, lead_zero=True)
     ns = torch.from_numpy(np.minimum(n_sig, l).astype(np.int32))
     return (ev._tstat(prefix, prefix_sq, ns, w1).numpy(),
             ev._tstat(prefix, prefix_sq, ns, w2).numpy())
+
+
+def peak_handoff_tstats():
+    """t-statistics (f32 [4, 160]) and n_sig (i32 [4]) on which the peak
+    detectors act across the 32-position tiles of the kernel at the viral
+    preset's parameters (t1 4.0, t2 3.5, w1 3, w2 9, peak_height 0.4):
+    row 0, the short detector enters a peak at 30 and masks the long one
+    from 31 up to 30 + w1 = 33, in the next tile, over a long peak at
+    28-40; row 1, the same long peak with no short peak; row 2, a long peak
+    at 60-65 whose drop comes in the next tile (pending across 64); row 3,
+    a short peak at 94-95 masking past 96 while a long peak sits at
+    90-99."""
+    l = 160
+    ts1 = np.zeros((4, l), np.float32)
+    ts2 = np.full((4, l), 0.5, np.float32)
+    ts1[0, 30:32] = 9.0
+    ts2[0:2, 28:41] = 6.0
+    ts2[0:2, 34] = 7.0
+    ts2[2, 60:63] = 6.5
+    ts2[2, 63:66] = 6.4
+    ts2[2, 66] = 1.0
+    ts1[3, 94:96] = 8.0
+    ts2[3, 90:100] = 5.0
+    ts2[3, 95] = 5.5
+    return ts1, ts2, np.full(4, l, np.int32)

@@ -243,10 +243,10 @@ def test_scan_adds_count_the_levels(n, kind):
 def test_event_kernel_bounds(boost_clock):
     """The serial scans are bounded by their critical path at the main
     path's shapes, the ordered sums by their bytes."""
-    lat = {"viaddmnmx": 4.0}
+    lat = {"viaddmnmx": 4.0, "fsetp_plop3_sel": 14.0}
     got = bounds.peaks_bound(256, 4000, 3990, lat)
     assert got["bound_class"] == "critical_path"
-    assert got["bound_ms"] == pytest.approx(3990 * bounds.PEAKS_CHAIN * 4.0 / HZ * 1e3)
+    assert got["bound_ms"] == pytest.approx(3990 * (4.0 + 14.0) / HZ * 1e3)
     assert got["class_ms"]["bytes"] == pytest.approx(
         (16 * 256 * 4000 + 4 * 256) / 3.35e12 * 1e3)
     assert bounds.peaks_bound(256, 4000, 3990)["bound_class"] == "bytes"
@@ -257,3 +257,54 @@ def test_event_kernel_bounds(boost_clock):
         got = bounds.scan_bound(256, 4000, kind)
         assert got["bound_class"] == "bytes"
         assert got["bound_ms"] == pytest.approx(4 * 256 * (4000 + out) / 3.35e12 * 1e3)
+
+
+@pytest.mark.parametrize("lat,cycles", [
+    ({"viaddmnmx": 4.0, "fsetp_plop3_sel": 14.0}, 18.0),
+    ({"viaddmnmx": 4.119710286458333, "fsetp_plop3_sel": 13.0, "redux": 44.0}, 17.119710286458333),
+])
+def test_peaks_chain_priced_by_class(boost_clock, lat, cycles):
+    """K5's chain a position is priced by instruction class at the card's
+    latencies: one ALU step (the drop) and one compare -> predicate op ->
+    select; classes the chain does not name cost nothing."""
+    assert bounds.chain_cycles(bounds.PEAKS_CHAIN, lat) == pytest.approx(cycles)
+    got = bounds.peaks_bound(256, 28672, 28672, lat)
+    assert got["class_ms"]["critical_path"] == pytest.approx(28672 * cycles / HZ * 1e3)
+
+
+def test_peaks_chain_needs_the_measured_classes():
+    """A latency table without the compare-select chain cannot price K5."""
+    with pytest.raises(KeyError):
+        bounds.peaks_bound(256, 4000, 4000, {"viaddmnmx": 4.0})
+
+
+@pytest.mark.parametrize("kind,out", [("cumsum", 4001), ("sum", 1)])
+def test_scan_bound_of_a_value_and_its_square(boost_clock, kind, out):
+    """One pass over x and x * x reads x once and writes both outputs (the
+    prefix sums with their leading zero): still bound by its bytes."""
+    got = bounds.scan_bound(256, 4000, kind, squares=True, lead_zero=True)
+    assert got["bound_class"] == "bytes"
+    assert got["bound_ms"] == pytest.approx(4 * 256 * (4000 + 2 * out) / 3.35e12 * 1e3)
+    assert got["class_ms"]["fp32"] == pytest.approx(
+        256 * (2 * bounds.scan_adds(4000, kind) + 4000) / (132 * 128 * HZ) * 1e3)
+
+
+def test_scan_stamp_phases():
+    """The K6 probe's reading of its stamps (profiling/kernel_time.py): a
+    launch's span and start skew from the global timer, warps an SM, and
+    each phase from the warp's previous stamp (a warp with no round of its
+    own times level 0 from its entry); warps that never ran are left out."""
+    from rawhash_tpu_torch.profiling.kernel_time import STAMPS, _phases
+
+    st = np.zeros((4, STAMPS), np.int64)
+    st[0] = [1000, 100, 300, 700, 720, 900, 0, 1500, 3]
+    st[1] = [1010, 200, 0, 600, 650, 0, 0, 1400, 3]
+    st[2] = [1020, 50, 150, 450, 460, 0, 0, 1300, 5]
+    got = _phases(st)
+    assert (got["warps"], got["sms"], got["warps_per_sm"]) == (3, 2, [1, 2])
+    assert (got["span_ns"], got["start_skew_ns"], got["warp_ns_median"]) == (500, 20, 390.0)
+    assert got["first_round_cycles"] == {"median": 150.0, "max": 200.0}
+    assert got["level0_cycles"] == {"median": 400.0, "max": 400.0}
+    assert got["barrier_cycles"] == {"median": 20.0, "max": 50.0}
+    assert got["levels_cycles"] == {"median": 180.0, "max": 180.0}
+    assert "down_cycles" not in got

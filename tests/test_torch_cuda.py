@@ -30,7 +30,8 @@ from rawhash_tpu_torch.signal import events as ev  # noqa: E402
 from rawhash_tpu_torch.sketch import device as sk  # noqa: E402
 from rawhash_tpu_torch.synthetic import (  # noqa: E402
     ava_fixture_reads, border_anchors, clustered_anchors, event_tstats, options,
-    random_chains, signal_chunk, sparse_anchors, wide_band_anchors,
+    peak_handoff_tstats, random_chains, signal_chunk, sparse_anchors,
+    wide_band_anchors,
 )
 
 
@@ -355,16 +356,22 @@ PEAKS = dict(t1=4.0, t2=3.5, w1=3, w2=9, peak_height=0.4)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,l", [(5, 33), (70, 4000), (256, 4000), (16, 28672)])
+@pytest.mark.parametrize("b,l", [(5, 33), (70, 4000), (256, 4000), (16, 28672),
+                                 (37, 95), (4, 160)])
 def test_gen_peaks_kernel_matches_plain(cuda_device, b, l):
     """The peak detector's kernel against the plain detector on the same
-    t-statistics: rows of different lengths (0, under 2 w2, all of L, past
-    it), a batch that is not a multiple of 32 reads, L not a multiple of
-    the kernel's 32-position tile."""
+    t-statistics: rows of different lengths (0, 1, under 2 w2, all of L,
+    past it), a batch that is not a multiple of 32 reads, L not a multiple
+    of the kernel's 32-position tile; at 4 x 160, the rows whose detectors
+    act across the tiles (the short detector's mask reaching into the next
+    tile, a long peak pending across a tile edge)."""
     rng = np.random.default_rng(l + b)
-    n_sig = rng.integers(0, l + 1, b).astype(np.int32)
-    n_sig[:4] = [l, 0, min(l, 17), l + 3][:b]
-    ts1, ts2 = event_tstats(rng, b, l, n_sig, PEAKS["w1"], PEAKS["w2"])
+    if (b, l) == (4, 160):
+        ts1, ts2, n_sig = peak_handoff_tstats()
+    else:
+        n_sig = rng.integers(0, l + 1, b).astype(np.int32)
+        n_sig[:5] = [l, 0, min(l, 17), l + 3, 1][:b]
+        ts1, ts2 = event_tstats(rng, b, l, n_sig, PEAKS["w1"], PEAKS["w2"])
     args = [torch.from_numpy(x) for x in (ts1, ts2, n_sig)]
     before = ev._gen_peaks.launches
     got = ev._gen_peaks(*(a.to(cuda_device) for a in args), **PEAKS)
@@ -376,10 +383,15 @@ def test_gen_peaks_kernel_matches_plain(cuda_device, b, l):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("l", [1, 5, 16, 17, 33, 255, 1000, 4000, 4001, 28672])
+@pytest.mark.parametrize("l", [1, 5, 15, 16, 17, 31, 32, 33, 255, 256, 257, 1000, 1023,
+                               1025, 4000, 4001, 4095, 4097, 8192, 28672, 57344])
 def test_ordered_scan_kernels_match_plain(cuda_device, l):
     """The ordered prefix sum and sum on the card against the plain versions
-    (XLA's CPU order), on contiguous rows and on rows of a wider array."""
+    (XLA's CPU order), on contiguous rows and on rows of a wider array, and
+    a value and its square in one launch (the prefix sum with its leading
+    zero) against the two single plain calls (a warp a row up to 8192
+    values, 8 warps a row past them; 57344 has three levels above the
+    row)."""
     rng = np.random.default_rng(l)
     wide = torch.from_numpy(rng.normal(0, 3, (37, l + 5)).astype(np.float32))
     for x in (wide[:, :l].contiguous(), wide[:, 2:l + 2]):
@@ -391,6 +403,35 @@ def test_ordered_scan_kernels_match_plain(cuda_device, l):
             before[0] + 1, before[1] + 1)
         assert torch.equal(cum.cpu(), ev.ordered_cumsum_plain(x))
         assert torch.equal(tot.cpu(), ev.ordered_sum_plain(x))
+        want_cum = ev.ordered_cumsum_plain(x, squares=True, lead_zero=True)
+        want_tot = ev.ordered_sum_plain(x, squares=True)
+        got = (*ev.ordered_cumsum(xc, squares=True, lead_zero=True),
+               *ev.ordered_sum(xc, squares=True))
+        for g, w in zip(got, (*want_cum, *want_tot)):
+            assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("squares", [False, True])
+def test_ordered_scan_kernels_on_two_devices(cuda_device, squares):
+    """The ordered sums on cuda:0, then on cuda:1 while cuda:0 is current:
+    at 256 x 4000 both kernels take more than 48 KB of shared memory, a
+    limit raised for each device on its own."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs")
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.normal(0, 3, (256, 4000)).astype(np.float32))
+    want = (ev.ordered_cumsum_plain(x, squares=squares, lead_zero=True),
+            ev.ordered_sum_plain(x, squares=squares))
+    torch.cuda.set_device(0)
+    for dev in (torch.device("cuda", 0), torch.device("cuda", 1)):
+        xd = x.to(dev)
+        got = (ev.ordered_cumsum(xd, squares=squares, lead_zero=True),
+               ev.ordered_sum(xd, squares=squares))
+        torch.cuda.synchronize(dev)
+        for g, w in zip(got, want):
+            for u, v in zip(*((t if squares else (t,)) for t in (g, w))):
+                assert u.device == dev and torch.equal(u.cpu(), v)
 
 
 @pytest.mark.cuda
@@ -438,7 +479,8 @@ def _events_and_sketch(sig, slen, preset):
 @pytest.mark.cuda
 def test_events_and_sketch_on_the_card(cuda_device):
     """The events and sketch stage on the card launches each kernel (the
-    detector and the filter once, the ordered sums five times), with no
+    detector, the filter and the ordered sum once, the ordered prefix sum
+    twice: a value and its square go through one launch), with no
     sync: the same torch ops at L = 4000 and 8000, none of them reading a
     value back."""
     from torch.utils._python_dispatch import TorchDispatchMode
@@ -467,6 +509,6 @@ def test_events_and_sketch_on_the_card(cuda_device):
         finally:
             torch.cuda.set_sync_debug_mode("default")
         ops[l] = count.n
-        assert [f.launches - n for f, n in zip(counters, before)] == [1, 3, 2, 1]
+        assert [f.launches - n for f, n in zip(counters, before)] == [1, 2, 1, 1]
         assert int(out[1].min()) > 50 and bool(out[6].any())
     assert ops[4000] == ops[8000]

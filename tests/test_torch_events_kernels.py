@@ -22,7 +22,9 @@ from rawhash_tpu.sketch import device as jsk  # noqa: E402
 from rawhash_tpu_torch._build import load_host_library  # noqa: E402
 from rawhash_tpu_torch.signal import events as tev  # noqa: E402
 from rawhash_tpu_torch.sketch import device as tsk  # noqa: E402
-from rawhash_tpu_torch.synthetic import event_tstats, options  # noqa: E402
+from rawhash_tpu_torch.synthetic import (  # noqa: E402
+    event_tstats, options, peak_handoff_tstats,
+)
 
 P = ctypes.c_void_p
 VIRAL = options("viral")
@@ -55,16 +57,42 @@ def host_peaks(ts1, ts2, n_sig, *, t1, t2, w1, w2, peak_height):
     return out
 
 
-def host_scan(x, which):
-    """rh_cumsum_host / rh_sum_host over x's rows (any row stride), level by
-    level as the kernels run them (ordered_scan.cuh)."""
+def host_scan(x, which, *, squares=False, lead=False):
+    """rh_prefix_host / rh_sum_host over x's rows (any row stride), as the
+    kernels run them (ordered_scan.cuh, the kernels' plan).  which "cumsum"
+    gives [B, lead + L] prefix sums, "sum" [B] sums; with squares, the pair
+    (of x, of x * x)."""
     lib = _lib("ordered_scan")
-    fn = getattr(lib, f"rh_{which}_host")
-    fn.argtypes = [P, ctypes.c_longlong, P, ctypes.c_int, ctypes.c_int]
     b, l = x.shape
-    out = np.full((b, l) if which == "cumsum" else (b,), np.nan, np.float32)
-    fn(_ptr(x), x.strides[0] // 4, _ptr(out), b, l)
-    return out
+    if which == "cumsum":
+        fn = lib.rh_prefix_host
+        fn.argtypes = [P, ctypes.c_longlong, P, P, ctypes.c_longlong] + [ctypes.c_int] * 3
+        shape = (b, l + lead)
+    else:
+        fn = lib.rh_sum_host
+        fn.argtypes = [P, ctypes.c_longlong, P, P] + [ctypes.c_int] * 2
+        shape = (b,)
+    fn.restype = ctypes.c_int
+    out = np.full(shape, np.nan, np.float32)
+    out_sq = np.full(shape, np.nan, np.float32) if squares else None
+    sq_ptr = _ptr(out_sq) if squares else None
+    if which == "cumsum":
+        rc = fn(_ptr(x), x.strides[0] // 4, _ptr(out), sq_ptr, l + lead, int(lead), b, l)
+    else:
+        rc = fn(_ptr(x), x.strides[0] // 4, _ptr(out), sq_ptr, b, l)
+    assert rc == 0
+    return (out, out_sq) if squares else out
+
+
+def scan_plan(l, which, squares):
+    """The kernels' plan of a row of l values (rh_scan_plan_host): {g: warps
+    a row, rows: rows a block, res: tiles a warp stages at a time, rounds:
+    rounds a row, smem: bytes a block}."""
+    lib = _lib("ordered_scan")
+    lib.rh_scan_plan_host.argtypes = [ctypes.c_int] * 3 + [P]
+    out = np.zeros(5, np.int64)
+    assert lib.rh_scan_plan_host(l, int(which == "cumsum"), int(squares), _ptr(out)) == 1
+    return dict(zip(("g", "rows", "res", "rounds", "smem"), map(int, out)))
 
 
 def host_diff(events, n_ev, diff):
@@ -153,14 +181,64 @@ def test_peaks_parameters_reach_the_header():
                                       plain_peaks(ts1, ts2, n_sig, **prm))
 
 
-@pytest.mark.parametrize("l", [5, 16, 17, 33, 255, 1000, 4000, 4001, 28672])
+def jax_peaks(ts1, ts2, n_sig, *, t1, t2, w1, w2, peak_height):
+    return np.asarray(jev._gen_peaks(jnp.asarray(ts1), jnp.asarray(ts2),
+                                     jnp.asarray(n_sig), t1, t2, w1, w2, peak_height))
+
+
+def test_peaks_handoff_across_tiles():
+    """The short detector's mask set at a tile's last positions reaches into
+    the next tile, and a long peak pends across a tile edge: the host build
+    of the two steps (a tile of short steps, then the tile's long steps)
+    equals the plain detector and the JAX package's _gen_peaks."""
+    ts1, ts2, n_sig = peak_handoff_tstats()
+    got = host_peaks(ts1, ts2, n_sig, **PEAKS)
+    want = plain_peaks(ts1, ts2, n_sig, **PEAKS)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(want, jax_peaks(ts1, ts2, n_sig, **PEAKS))
+    long0, long1 = want[0, 1::2], want[1, 1::2]
+    assert (long0 != long1).any()  # the mask across the edge changed row 0
+    assert want[0, 0::2].max() == 30  # the short peak, emitted
+    assert (want[2, 1::2][64:] >= 0).any() and (want[2, 1::2][:64] < 0).all()
+    assert (want[3, 0::2] >= 0).any()
+
+
+@pytest.mark.parametrize("l", [31, 32, 33, 95, 4000])
+def test_peaks_mixed_lengths_in_one_warp(l):
+    """Reads of n_sig 0, 1, l and past l, and random ones, in one 32-read
+    warp and past it (b = 37), on tiles that end before, at and after l."""
+    rng = np.random.default_rng(l)
+    b = 37
+    n_sig = rng.integers(0, l + 1, b).astype(np.int32)
+    n_sig[:5] = [0, 1, l, l + 7, min(l, 33)]
+    n_sig[32:35] = [1, 0, l]
+    ts1, ts2 = _signal_tstats(rng, b, l, np.minimum(n_sig, l))
+    got = host_peaks(ts1, ts2, n_sig, **PEAKS)
+    want = plain_peaks(ts1, ts2, n_sig, **PEAKS)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(want, jax_peaks(ts1, ts2, np.minimum(n_sig, l), **PEAKS))
+    assert (want[0] == -1).all() and (want[1] == -1).all()
+
+
+# lengths at each level's edge: 16^k +/- 1 (the prefix sum's blocks) and
+# 32^k +/- 1 (the sum's windows), the events stage's 4000 and ava's 28672
+SCAN_LENGTHS = [1, 5, 15, 16, 17, 31, 32, 33, 255, 256, 257, 1000, 1023, 1024, 1025,
+                4000, 4001, 4095, 4096, 4097, 28671, 28672]
+
+
+def _scan_rows(l):
+    rng = np.random.default_rng(l)
+    wide = rng.normal(0, 3, (6, l + 7)).astype(np.float32)
+    wide[0, : min(l, 40)] = -0.0  # signed zeros in front
+    return wide
+
+
+@pytest.mark.parametrize("l", SCAN_LENGTHS)
 def test_scan_header_matches_plain_and_jax(l):
     """The kernels' level order equals the plain ordered sums and XLA's CPU
     jnp.cumsum / jnp.sum bit for bit, on contiguous rows and on rows of a
     wider array (the kernels take a row stride)."""
-    rng = np.random.default_rng(l)
-    wide = rng.normal(0, 3, (6, l + 7)).astype(np.float32)
-    wide[0, : min(l, 40)] = -0.0  # signed zeros in front
+    wide = _scan_rows(l)
     for x in (np.ascontiguousarray(wide[:, :l]), wide[:, 3:l + 3]):
         cum, tot = host_scan(x, "cumsum"), host_scan(x, "sum")
         xt = torch.from_numpy(x)
@@ -168,6 +246,67 @@ def test_scan_header_matches_plain_and_jax(l):
         np.testing.assert_array_equal(tot, tev.ordered_sum_plain(xt).numpy())
         np.testing.assert_array_equal(cum, np.asarray(jnp.cumsum(jnp.asarray(x), axis=1)))
         np.testing.assert_array_equal(tot, np.asarray(jnp.sum(jnp.asarray(x), axis=1)))
+
+
+@pytest.mark.parametrize("l", SCAN_LENGTHS)
+def test_scan_pair_equals_two_single_calls(l):
+    """One pass over a value and its square (with the prefix sum's leading
+    zero) equals the two single calls, on the host build and on the plain
+    side, and through them jnp.cumsum / jnp.sum of x and x * x."""
+    x = _scan_rows(l)[:, 2:l + 2]
+    xt = torch.from_numpy(x)
+    sq = x * x
+    cum, cum_sq = host_scan(x, "cumsum", squares=True, lead=True)
+    tot, tot_sq = host_scan(x, "sum", squares=True)
+    pad = np.zeros((x.shape[0], 1), np.float32)
+    for got, want in ((cum, host_scan(x, "cumsum")), (cum_sq, host_scan(sq, "cumsum"))):
+        np.testing.assert_array_equal(got, np.concatenate([pad, want], axis=1))
+    np.testing.assert_array_equal(tot, host_scan(x, "sum"))
+    np.testing.assert_array_equal(tot_sq, host_scan(sq, "sum"))
+    plain_cum = tev.ordered_cumsum_plain(xt, squares=True, lead_zero=True)
+    plain_tot = tev.ordered_sum_plain(xt, squares=True)
+    for got, want in ((cum, plain_cum[0]), (cum_sq, plain_cum[1]), (tot, plain_tot[0]),
+                      (tot_sq, plain_tot[1])):
+        np.testing.assert_array_equal(got, want.numpy())
+    np.testing.assert_array_equal(cum_sq[:, 1:], np.asarray(jnp.cumsum(jnp.asarray(sq), axis=1)))
+    np.testing.assert_array_equal(tot_sq, np.asarray(jnp.sum(jnp.asarray(sq), axis=1)))
+    assert (cum[:, 0] == 0).all() and (cum_sq[:, 0] == 0).all()
+
+
+# lengths on each side of the plan's edges: one warp a row up to 8192
+# values, 8 past them; a prefix sum's tiles kept for its down-sweep (4000,
+# 8193, 16384) or its rounds copied again (6000, 8192, 16385, 28673)
+PLAN_LENGTHS = [4000, 6000, 8191, 8192, 8193, 16384, 16385, 28673, 40000]
+
+
+@pytest.mark.parametrize("l", PLAN_LENGTHS)
+@pytest.mark.parametrize("strided", [False, True])
+def test_scan_plan_paths(l, strided):
+    """On each side of the plan's edges (warps a row, tiles kept or copied
+    again), the host build of the kernels' layout, a value and its square
+    with the prefix sum's leading zero, equals the plain versions bit for
+    bit, on contiguous rows and on rows of a wider array."""
+    wide = _scan_rows(l)
+    x = wide[:, 1:l + 1] if strided else np.ascontiguousarray(wide[:, :l])
+    plan = scan_plan(l, "cumsum", True)
+    assert plan["g"] == (8 if l > 8192 else 1)
+    xt = torch.from_numpy(x)
+    got = (*host_scan(x, "cumsum", squares=True, lead=True), *host_scan(x, "sum", squares=True))
+    want = (*tev.ordered_cumsum_plain(xt, squares=True, lead_zero=True),
+            *tev.ordered_sum_plain(xt, squares=True))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w.numpy())
+
+
+def test_scan_plan_lengths_cover_both_paths():
+    """PLAN_LENGTHS take each of the prefix sum's four paths: one warp or 8
+    a row, tiles kept for the down-sweep or rounds copied again."""
+    paths = set()
+    for l in PLAN_LENGTHS:
+        p = scan_plan(l, "cumsum", True)
+        paths.add((p["g"], p["res"] < -(-p["rounds"] // p["g"])))
+        assert p["smem"] <= 227 * 1024
+    assert paths == {(1, False), (1, True), (8, False), (8, True)}
 
 
 def _events(rng, b, e):
@@ -262,15 +401,22 @@ def test_gen_peaks_rejects_wrong_dtype_or_layout(case):
         tev._gen_peaks(*_bad_peaks_inputs()[case], **PEAKS)
 
 
-@pytest.mark.parametrize("fn", ["ordered_cumsum", "ordered_sum"])
-@pytest.mark.parametrize("case", ["f64", "transposed", "1-D", "3-D"])
-def test_ordered_sums_reject_wrong_dtype_or_layout(fn, case):
+@pytest.mark.parametrize("fn,options", [
+    pytest.param("ordered_cumsum", {}, id="ordered_cumsum"),
+    pytest.param("ordered_sum", {}, id="ordered_sum"),
+    pytest.param("ordered_cumsum", {"squares": True, "lead_zero": True},
+                 id="ordered_cumsum-squares-lead_zero"),
+    pytest.param("ordered_cumsum", {"lead_zero": True}, id="ordered_cumsum-lead_zero"),
+    pytest.param("ordered_sum", {"squares": True}, id="ordered_sum-squares")])
+@pytest.mark.parametrize("case", ["f64", "transposed", "1-D", "3-D", "i32"])
+def test_ordered_sums_reject_wrong_dtype_or_layout(fn, options, case):
     x = {"f64": torch.zeros((4, 64), dtype=torch.float64),
          "transposed": torch.zeros((64, 4)).t(),
          "1-D": torch.zeros(64),
-         "3-D": torch.zeros((2, 4, 64))}[case]
+         "3-D": torch.zeros((2, 4, 64)),
+         "i32": torch.zeros((4, 64), dtype=torch.int32)}[case]
     with pytest.raises(ValueError):
-        getattr(tev, fn)(x)
+        getattr(tev, fn)(x, **options)
 
 
 def test_ordered_sums_take_strided_rows():
