@@ -111,9 +111,11 @@ Phases, each printed as one JSON line and each fatal on failure:
                bases, 60 kb, seed 23, `-x ava-viral`, --max-anchors 2048),
                mapped as one batch: precision >= 0.12 and recall >= 0.65
  14. dtw       D1's genome indexed with --store-sig, `-x viral
-               --dtw-evaluate-chains`, 1 x 256 reads; every dtw_banded_batch
-               call timed (CUDA events), the widest one run again on CPU
-               copies: max relative difference <= 1e-4
+               --dtw-evaluate-chains`, 1 x 256 reads, the banded DTW on its
+               kernel (csrc/dtw_banded.cu); every dtw_banded_batch call
+               timed (CUDA events), the widest one held bit for bit against
+               the plain version on the same inputs on the card (max abs
+               err 0) and timed three ways beside it and its bound
  15. rmq, bw_long D1 with --rmq, then with --bw-long at 5x the preset's --bw,
                1 x 256 reads each
  16. dist      the sharded engine (--n-shards 1) in a one-rank NCCL process
@@ -148,9 +150,9 @@ each resets the kernels' launch counters just before it and reads them
 just after; every kernel of its path must have launched in it: the
 events and sketch kernels and the fill in every run, the backtrack too
 in those that take the device tail (all but d1, ava_tails, ava_quality,
-dtw, rmq and bw_long).  Phases 7-9, 14 and 15 need >= 95% of reads mapped at accuracy
->= 0.95 (strand right, mapped target interval inside the read's true
-interval +/- 200).
+dtw, rmq and bw_long), the banded DTW in dtw.  Phases 7-9, 14 and 15 need
+>= 95% of reads mapped at accuracy >= 0.95 (strand right, mapped target
+interval inside the read's true interval +/- 200).
 The plain versions that run on the host CPU (the backtrack on CPU copies,
 the fill of d4's and ava's held rows, backtrack_compact's CPU route), the
 fixture's --device cpu runs and the ava cell's index build go to two
@@ -161,9 +163,9 @@ all of them before the kernels line, and a phase whose check waits emits
 its line then.
 The line before the card's line lists every kernel with its launches, error
 and times beside its bound (rawhash_tpu_torch/profiling/bounds.py: bytes,
-fp32, int32 and conversions each at the H100's own rate, and for K4, the
-peak detector and the diff filter their critical paths at the card's
-measured latencies, the largest time);
+fp32, int32, fp32 mins and conversions each at the H100's own rate, and
+for K4, the peak detector, the diff filter and the banded DTW their
+critical paths at the card's measured latencies, the largest time);
 the last line is {"ok": true, "device": ...}.
 Needs a CUDA device; exits non-zero without one.
 """
@@ -1489,13 +1491,20 @@ def phase_ava_quality(torch, dev) -> dict:
     return row
 
 
-def phase_dtw(torch, dev) -> dict:
+def phase_dtw(torch, dev, lat) -> dict:
     """D1's genome indexed with --store-sig and mapped with
-    --dtw-evaluate-chains (1 x 256 reads); each dtw_banded_batch call timed
-    with CUDA events, and the widest call (pairs x length x radius) run
-    again on CPU copies of its inputs."""
+    --dtw-evaluate-chains (1 x 256 reads), the banded DTW on its kernel;
+    each dtw_banded_batch call timed with CUDA events; the widest call
+    (pairs x length x radius) held bit for bit against the plain version
+    on the same inputs on the card, and timed three ways
+    (profiling/kernel_time.py: device time by a CUDA graph of 5 launches,
+    call time, host time) beside the plain version's one call and its
+    bound (profiling/bounds.py::dtw_bound, the pairs' own columns and the
+    card's latencies `lat`)."""
     from rawhash_tpu_torch.config import MapFlag
     from rawhash_tpu_torch.dtw import device as dtw_device
+    from rawhash_tpu_torch.profiling import bounds
+    from rawhash_tpu_torch.profiling.kernel_time import call_ms, device_ms, host_ms
 
     fn = dtw_device.dtw_banded_batch
     calls = []
@@ -1507,6 +1516,9 @@ def phase_dtw(torch, dev) -> dict:
         e.record()
         calls.append((s, e, a, k, out))
         return out
+    # the same attributes: the wrapper counts its launches on its module's
+    # name, which is `timed` during the run
+    timed.__dict__ = fn.__dict__
 
     def dtw_mode(mo):
         mo.flag |= MapFlag.DTW_EVALUATE_CHAINS
@@ -1525,15 +1537,31 @@ def phase_dtw(torch, dev) -> dict:
         a, k = c[2], c[3]
         return a[0].shape[0] * a[0].shape[1] * k["max_radius"]
 
-    _, _, a, k, got = max(calls, key=work)
-    want = fn(*(t.cpu() for t in a), **k)
-    rel = float(((got.cpu() - want).abs() / want.abs().clamp_min(1e-6)).max())
+    widest = max(range(len(calls)), key=lambda i: work(calls[i]))
+    _, _, a, k, got = calls[widest]
+    # the launches below compare and time the kernel: the main path's count
+    # is the run's
+    counted = fn.launches
+    want, plain_ms = timed_once(torch, lambda: dtw_device.dtw_banded_batch_plain(*a, **k))
+    err = float((got - want).abs().max())
+    check(torch.equal(got, want), f"dtw: the kernel's costs differ from the plain "
+          f"version's on the widest call (max abs err {err})")
+    pairs, max_len = a[0].shape
+    width = 2 * k["max_radius"] + 1
+    a_len, b_len = a[1].long().clamp(0, max_len), a[3].long().clamp(0, max_len)
+    columns, values = int(a_len.sum()), int(a_len.sum() + b_len.sum())
+    call = lambda: fn(*a, **k)  # noqa: E731
     out = dict(calls=len(calls), total_ms=float(sum(ms)), median_ms=float(np.median(ms)),
-               widest_pairs=a[0].shape[0], widest_max_len=a[0].shape[1],
-               widest_max_radius=k["max_radius"], widest_max_rel_diff_vs_cpu=rel,
-               share_of_cell=sum(ms) / 1e3 / row["seconds"])
+               widest_pairs=pairs, widest_max_len=max_len,
+               widest_max_radius=k["max_radius"], widest_ms=ms[widest],
+               max_abs_err=err, ms=device_ms(call, 5), call_ms=call_ms(call),
+               host_ms=host_ms(call, 5), plain_ms=plain_ms,
+               share_of_cell=sum(ms) / 1e3 / row["seconds"],
+               columns=columns, longest=int(a_len.max()),
+               **bounds.dtw_bound(pairs, max_len, width, lat, columns=columns,
+                                  values=values))
+    fn.launches = counted
     emit({"phase": "dtw_banded_batch", **out})
-    check(rel <= 1e-4, f"dtw: the card's costs differ from the CPU's by {rel} relative")
     row["dtw_banded_batch"] = out
     return row
 
@@ -1811,6 +1839,7 @@ def main(argv=None) -> int:
         from rawhash_tpu_torch.chain.backtrack import chain_backtrack
         from rawhash_tpu_torch.chain.fill import chain_fill
         from rawhash_tpu_torch.config import MapFlag
+        from rawhash_tpu_torch.dtw.device import dtw_banded_batch
         from rawhash_tpu_torch.profiling.bounds import sm_clock
 
         t0 = time.perf_counter()
@@ -1832,7 +1861,7 @@ def main(argv=None) -> int:
             emit({"phase": f"{name}_done", "seconds": time.perf_counter() - t0})
 
         counters = {"chain_fill": chain_fill, "chain_backtrack": chain_backtrack,
-                    **event_kernels()}
+                    **event_kernels(), "dtw_banded_batch": dtw_banded_batch}
         runs = {}
         runs["fixture"] = main_path(
             "fixture", lambda: phase_fixture(fixture_dir, host), counters)
@@ -1891,7 +1920,7 @@ def main(argv=None) -> int:
             "ava": lambda: phase_ava(torch, dev, ava, ava_inputs.result()),
             "ava_tails": lambda: phase_ava_tails(torch, dev, ava.pop("rerun")),
             "ava_quality": lambda: phase_ava_quality(torch, dev),
-            "dtw": lambda: phase_dtw(torch, dev),
+            "dtw": lambda: phase_dtw(torch, dev, timed["event_kernels"]["latencies"]),
             "rmq": lambda: phase_deployment(torch, dev, "rmq", 30_000, "viral", 1,
                                             1200, 3072, 7, {}, configure=rmq_mode),
             "bw_long": lambda: phase_deployment(torch, dev, "bw_long", 30_000, "viral",
@@ -1918,7 +1947,8 @@ def main(argv=None) -> int:
         host_tail = ("d1", "ava_tails", "ava_quality", "dtw", "rmq", "bw_long")
         for name, (_, n) in runs.items():
             path = {k: v for k, v in n.items()
-                    if not (k == "chain_backtrack" and name in host_tail)}
+                    if not (k == "chain_backtrack" and name in host_tail)
+                    and not (k == "dtw_banded_batch" and name != "dtw")}
             check(all(v > 0 for v in path.values()),
                   f"{name}: a kernel of its path was not launched: {n}")
         launches = {k: sum(n[k] for _, n in runs.values()) for k in counters}
@@ -2022,6 +2052,20 @@ def main(argv=None) -> int:
                 **{c: {k: calls[c][0][k] for k in ("shape", "ms", "bound_ms", "library_ms")}
                    for c in ("sensitive", "ava")},
             })
+        # the banded DTW (the JAX package's compiled scan, not Pallas): the
+        # dtw cell's widest call
+        dtw = runs["dtw"][0]["dtw_banded_batch"]
+        kernels.append({
+            "name": "dtw_banded_batch", "route": "cuda",
+            "source": "rawhash_tpu_torch/csrc/dtw_banded.cu",
+            "replaces": "rawhash_tpu/dtw/device.py:33",
+            "launches": launches["dtw_banded_batch"], "max_abs_err": dtw["max_abs_err"],
+            "ms": dtw["ms"], "plain_ms": dtw["plain_ms"], "bound_ms": dtw["bound_ms"],
+            "bound_by": bound_by(dtw), "library_ms": None,
+            "call_ms": dtw["call_ms"], "host_ms": dtw["host_ms"],
+            "shape": [dtw["widest_pairs"], dtw["widest_max_len"],
+                      2 * dtw["widest_max_radius"] + 1],
+        })
         emit({"kernels": kernels,
               **{f"{c}_bp_per_s": runs[c][0]["bp_per_s"]
                  for c in (*cells, "ava", "dtw", "rmq", "bw_long")},

@@ -122,8 +122,8 @@ def load_host_library(name: str) -> ctypes.CDLL:
     """A kernel's header built for the host with g++: csrc/<name>_host.cpp
     (chain_backtrack: rh_bt_serial, rh_bt_rounds; events_peaks:
     rh_peaks_host; ordered_scan: rh_prefix_host, rh_sum_host,
-    rh_scan_plan_host; diff_filter:
-    rh_diff_filter_host; fill_loop_probe: rh_probe_serial, rh_probe_warp,
+    rh_scan_plan_host; diff_filter: rh_diff_filter_host; dtw_banded:
+    rh_dtw_banded_host; fill_loop_probe: rh_probe_serial, rh_probe_warp,
     rh_probe_chain1), cached by a hash of its sources under
     build/rawhash_tpu_torch/host, loaded once per process."""
     with _LOCK:

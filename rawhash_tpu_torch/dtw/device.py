@@ -16,12 +16,19 @@ with the prefix-min identity of dtw/banded.py:
 a cummin over the band.  The prefix sum csum is taken in the order XLA's
 CPU backend takes the reference engine's jnp.cumsum (`_cumsum`), so costs
 agree with it to the last bit; the cummin is exact in any order.
+
+On CUDA tensors `dtw_banded_batch` runs the JAX package's compiled scan as
+a kernel (csrc/dtw_banded.cu, a thread a pair), bit for bit; on CPU
+tensors its plain version, `dtw_banded_batch_plain`.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .._build import check_operand, kernel
+from ..signal.events import launch_counted
 
 BIG = 1e10  # rounds to the float32 BIG of dtw/banded.py
 BLOCK = 16  # XLA's scan block (its ReduceWindowRewriter base length)
@@ -51,7 +58,7 @@ def _cumsum(x: torch.Tensor) -> torch.Tensor:
     return (excl[:, :, None] + inner).reshape(b, m)[:, :n]
 
 
-def dtw_banded_batch(
+def dtw_banded_batch_plain(
     a: torch.Tensor,  # f32 [B, L] (the longer sequence of each pair)
     a_len: torch.Tensor,  # int [B]
     b: torch.Tensor,  # f32 [B, L]
@@ -115,6 +122,54 @@ def dtw_banded_batch(
         center = center2
     out_slot = (b_len - 1 - center + r).clamp(0, width - 1)
     return torch.gather(dp, 1, out_slot[:, None])[:, 0]
+
+
+def dtw_banded_batch(
+    a: torch.Tensor,  # f32 [B, L] (the longer sequence of each pair)
+    a_len: torch.Tensor,  # i32 [B]
+    b: torch.Tensor,  # f32 [B, L]
+    b_len: torch.Tensor,  # i32 [B]
+    radius: torch.Tensor,  # i32 [B] per-pair band radius (<= max_radius)
+    *,
+    max_radius: int,
+) -> torch.Tensor:
+    """`dtw_banded_batch_plain` (a, b f32 [B, L] with L >= 1, a_len, b_len,
+    radius i32 [B], contiguous -> f32 [B]): on CUDA tensors by the kernel
+    rh_dtw_banded (csrc/dtw_banded.cu), bit for bit, each pair to its own
+    a_len; a band wider than the kernel's shared memory holds runs from a
+    scratch of 2 x (width + 3) x B floats (dp and b's values, three slots
+    past the band)."""
+    if a.dim() != 2:
+        raise ValueError(f"dtw_banded_batch: a must be 2-D, got {tuple(a.shape)}")
+    bsz, max_len = a.shape
+    dev = a.device
+    fn = "dtw_banded_batch"
+    check_operand(fn, "a", a, torch.float32, (bsz, max_len), dev)
+    check_operand(fn, "b", b, torch.float32, (bsz, max_len), dev)
+    for name, t in (("a_len", a_len), ("b_len", b_len), ("radius", radius)):
+        check_operand(fn, name, t, torch.int32, (bsz,), dev)
+    if dev.type == "cpu":
+        return dtw_banded_batch_plain(a, a_len, b, b_len, radius, max_radius=max_radius)
+    if dev.type != "cuda":
+        raise ValueError(f"dtw_banded_batch: unsupported device {dev}")
+    r = int(max_radius)
+    if r < 0 or (bsz and max_len < 1):
+        raise ValueError(f"dtw_banded_batch: max_radius {r} and L {max_len} "
+                         "must be >= 0 and >= 1")
+    out = torch.empty(bsz, dtype=torch.float32, device=dev)
+    if bsz:
+        width = 2 * r + 1
+        scratch = None
+        if width > kernel("rh_dtw_shared_width", [])():
+            scratch = torch.empty(2 * (width + 3) * bsz, dtype=torch.float32, device=dev)
+        launch_counted(dtw_banded_batch, "rh_dtw_banded", dev, a.data_ptr(),
+                       a_len.data_ptr(), b.data_ptr(), b_len.data_ptr(),
+                       radius.data_ptr(), out.data_ptr(), bsz, max_len, r,
+                       None if scratch is None else scratch.data_ptr())
+    return out
+
+
+dtw_banded_batch.launches = 0
 
 
 def _pow2_at_least(x: int, lo: int) -> int:

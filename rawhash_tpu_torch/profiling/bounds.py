@@ -10,7 +10,8 @@ of the times:
   adds or multiplies (the kernels build with --fmad=false, so each is one
   instruction), 64 int32 adds, mins, maxes, compares or logical
   operations, 16 type conversions (Hopper's I2FP int->float conversion is
-  taken at that rate too);
+  taken at that rate too), and 64 fp32 compares, mins or maxes (the
+  table's "compare, minimum, maximum" row);
 - over 132 SMs, at the SM clock nvidia-smi reports as clocks.max.sm, or at
   the data sheet's 1980 MHz boost where that cannot be read (`sm_clock`
   says which);
@@ -23,7 +24,8 @@ need: `fill_work` counts the (anchor, predecessor) pairs K1's function
 needs, by how far the per-slot score takes each; `backtrack_work` counts
 the candidate visits and walk steps the backtrack needs, by running its
 serial algorithm on the host; the peak detector's and the diff filter's
-critical paths run to the longest row's live positions or events.
+critical paths run to the longest row's live positions or events; the
+banded DTW's operations to each pair's own columns.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12
 SMS = 132
-PER_SM_PER_CLOCK = {"fp32": 128, "int32": 64, "cvt": 16}
+PER_SM_PER_CLOCK = {"fp32": 128, "int32": 64, "cvt": 16, "fp32_minmax": 64}
 BOOST_HZ = 1.98e9
 
 
@@ -56,8 +58,8 @@ def sm_clock() -> tuple[float, str]:
 
 def bound(nbytes: float, critical_path: float | None = None, **ops: float) -> dict:
     """The largest of the bytes over the memory rate, each class of
-    operations (`fp32=`, `int32=`, `cvt=` counts) over its own rate and,
-    where given, the critical path: the cycles of the work's longest chain
+    operations (`fp32=`, `int32=`, `cvt=`, `fp32_minmax=` counts) over its
+    own rate and, where given, the critical path: the cycles of the work's longest chain
     of dependent instructions (at latencies measured on the card) at the SM
     clock.  {bound_ms, bound_class ("bytes", "critical_path" or the class of
     operations), class_ms (each class's time)}."""
@@ -304,3 +306,52 @@ def scan_bound(b: int, l: int, kind: str, squares: bool = False,
     out = 4.0 * b * k * (l + int(lead_zero) if kind == "cumsum" else 1)
     return bound(4.0 * b * l + out,
                  fp32=float(b * (k * scan_adds(l, kind) + (l if squares else 0))))
+
+
+# The banded DTW's (K8) work a band slot a column, as the plain version
+# (dtw/device.py::dtw_banded_batch_plain) and csrc/dtw_banded.cuh compute
+# it: the adds |a - b|, min(left, topleft) + cost, bm - csum and
+# cummin + csum, and the mins min(left, topleft), min(., BIG), the running
+# minimum and min(new, BIG); csum's own adds are `xla_adds`.  The selects
+# and the integer work of the band are left out, so the bound stays a lower
+# one.
+DTW_SLOT = {"fp32": 4, "fp32_minmax": 4}
+
+
+def xla_adds(n: int) -> int:
+    """The f32 adds of XLA's CPU prefix sum of n values as csrc/
+    dtw_banded.cuh takes it: a level of more than 16 values adds inside its
+    blocks of 16 and adds each value to the sum of the blocks before it,
+    then its block totals are summed one level up; the top level (at most
+    16 values) adds in order."""
+    adds = 0
+    while n > 16:
+        blocks = -(-n // 16)
+        adds += (n - blocks) + n
+        n = blocks
+    return adds + max(n - 1, 0)
+
+
+def dtw_bound(pairs: int, max_len: int, width: int, lat: dict | None = None, *,
+              columns: int | None = None, values: int | None = None) -> dict:
+    """The banded DTW's (K8) bound on a call of `pairs` pairs padded to
+    max_len with a band `width` slots wide: each pair's a and b values read
+    once (`values`, the sum of the pairs' a_len and b_len; 2 pairs max_len
+    if not given), its lengths and radius read and its cost written (16 B a
+    pair); DTW_SLOT and xla_adds(width) a slot a column over `columns`
+    columns (the sum of the pairs' a_len, column 0 included; pairs max_len if
+    not given); with the card's latencies, the longest pair's max_len
+    columns, each the chain that carries a column's dp to the next:
+    min(left, topleft), + cost, min(., BIG), - csum, a running minimum over
+    the band in ceil(log2 width) steps, + csum, min(., BIG) and the select of
+    a valid slot, each at the ALU latency.  csum is not on that chain: it
+    depends on a and b alone, so a column's can be summed before the column
+    before it ends."""
+    columns = pairs * max_len if columns is None else columns
+    values = 2 * pairs * max_len if values is None else values
+    ops = {cls: float(columns * width * n) for cls, n in DTW_SLOT.items()}
+    ops["fp32"] += float(columns * xla_adds(width))
+    chain = 7 + max(width - 1, 0).bit_length()
+    return bound(4.0 * values + 16.0 * pairs,
+                 critical_path=None if lat is None else
+                 max_len * chain * lat["viaddmnmx"], **ops)

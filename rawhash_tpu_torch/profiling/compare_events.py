@@ -17,8 +17,8 @@ JSON line per workload (all of them, or those named):
   d1 d2 d4  chip_smoke.py's mapping cells (the same genomes, presets, reads
             and --max-anchors: D1 viral 2 x 256 reads, D2 E. coli-sized 2 x
             256, D4 100 Mbp 1 x 256), built once and mapped by a fresh
-            engine of each checkout a run: bp/s and the stage sums of each
-            run; the records must be equal;
+            engine of each checkout a run, after one untimed run of each:
+            bp/s and the stage sums of each run; the records must be equal;
   fixture   the viral fixture (8 kb genome, 6 reads of 600 bases, seed 5,
             --max-anchors 512) at two reads a batch, three batches, at
             --pipeline-depth 1 and 3: seconds of each;
@@ -33,6 +33,19 @@ JSON line per workload (all of them, or those named):
             input, torch.sum and torch.cumsum beside them, and the stage's
             calls of one chunk; device, call and host ms), two runs each;
             the stage's sums must be equal;
+  filter    the diff filter's kernel (`_diff_filter` on CUDA tensors) of
+            both checkouts on the inputs this checkout's events stage gives
+            it at the viral (256 x 4000 samples, 768 events) and ava (256 x
+            28672, 16384) shapes: device ms (kernel_time.device_ms, 20
+            launches in a CUDA graph, the median of 5 replays a run); the
+            keep masks must be equal;
+  dtw       chip_smoke.py's dtw cell (D1's genome indexed with --store-sig,
+            1 x 256 reads, --dtw-evaluate-chains), mapped by a fresh engine
+            of each checkout a run: bp/s and the stage sums, the records
+            equal; then each checkout's `dtw_banded_batch` on the run's
+            widest call (caught during this checkout's first run): call ms
+            (kernel_time.call_ms, one call on an idle card, the median of
+            3), the costs equal;
   busy      one D1 batch of this checkout under torch.profiler: the share of
             the wall time in which the card ran a kernel (the union of the
             kernels' intervals over the wall time).
@@ -45,6 +58,7 @@ from __future__ import annotations
 
 import copy
 import gc
+import importlib
 import json
 import sys
 import time
@@ -55,8 +69,11 @@ import torch
 
 from .. import _build as this_build
 from .. import synthetic
+from ..config import MapFlag
+from ..dtw import device as this_dtw
 from ..map import device_step, engine as eng_mod
 from ..signal import events as this_events
+from ..sketch import device as this_sketch
 from .compare_backtrack import OTHER, load_other
 from .fill_loop_overhead import card
 
@@ -71,6 +88,7 @@ CELLS = {
     "d2": (5_000_000, "sensitive", 2, 2500, 16384, 11),
     "d4": (100_000_000, "sensitive", 1, 3000, 4096, 13),
 }
+DTW_CELL = (30_000, "viral", 1, 1200, 3072, 7)  # chip_smoke.py's dtw cell
 
 
 def summary(runs: dict) -> dict:
@@ -147,15 +165,20 @@ def bases(mopt):
     return count
 
 
-def compare_cell(name, mods) -> dict:
-    genome_len, preset, n_batches, read_len, max_anchors, seed = CELLS[name]
+def compare_cell(name, mods, store_sig=False, flag=0) -> dict:
+    genome_len, preset, n_batches, read_len, max_anchors, seed = (
+        DTW_CELL if name == "dtw" else CELLS[name])
     t0 = time.perf_counter()
     index, mopt, reads = synthetic.deployment(genome_len, preset, n_batches * 256,
-                                              read_len, max_anchors, seed)
+                                              read_len, max_anchors, seed,
+                                              store_sig=store_sig)
+    mopt.flag |= flag
     setup = time.perf_counter() - t0
     batches = [[(n, s) for n, s, _, _ in reads[i:i + 256]]
                for i in range(0, len(reads), 256)]
     bps, stages, recs = {"this": [], "other": []}, {"this": [], "other": []}, {}
+    for who in ("other", "this"):  # each checkout's first map of the process, untimed
+        map_once(mods[who]["engine"], index, mopt, batches, bases(mopt))
     for who in ORDER:
         _, r, st, rec = map_once(mods[who]["engine"], index, mopt, batches, bases(mopt))
         bps[who].append(r)
@@ -165,6 +188,67 @@ def compare_cell(name, mods) -> dict:
     return {"workload": name, "preset": preset, "reads": len(reads), "setup_s": setup,
             "records_equal": recs["this"] == recs["other"], "bp_per_s": s,
             "speedup": s["this"]["median"] / s["other"]["median"], "stage_seconds": stages}
+
+
+def caught_call(module, name, fn):
+    """(fn's result, the (args, kwargs) of every call of module.name during
+    fn)."""
+    orig, caught = getattr(module, name), []
+
+    def spy(*a, **k):
+        caught.append((a, k))
+        return orig(*a, **k)
+    spy.__dict__ = orig.__dict__  # the launch counter on the module's name
+    setattr(module, name, spy)
+    try:
+        out = fn()
+    finally:
+        setattr(module, name, orig)
+    return out, caught
+
+
+def compare_filter(mods) -> dict:
+    """The diff filter's kernel (K7) of both checkouts, in turns, on the
+    inputs this checkout's events stage gives it at the viral and ava
+    shapes."""
+    from .kernel_time import FILTER_SHAPES, device_ms, filter_inputs
+
+    out = {"workload": "filter", "equal": True, "shapes": {}}
+    for preset, l, e_cap in FILTER_SHAPES:
+        a = filter_inputs(preset, l, e_cap)
+        fns = {who: (lambda m=m: m["sketch"]._diff_filter(*a)) for who, m in mods.items()}
+        out["equal"] &= torch.equal(fns["this"](), fns["other"]())
+        ms = {"this": [], "other": []}
+        for who in ORDER:
+            ms[who].append(device_ms(fns[who]))
+        s = summary(ms)
+        out["shapes"][preset] = {"shape": list(a[0].shape), "n_live": int(a[1].max()),
+                                 "ms": s,
+                                 "speedup": s["other"]["median"] / s["this"]["median"]}
+    return out
+
+
+def compare_dtw(mods) -> dict:
+    """The dtw cell in turns, and the two checkouts' banded DTW on its
+    widest call."""
+    from .kernel_time import call_ms
+
+    row, calls = caught_call(this_dtw, "dtw_banded_batch", lambda: compare_cell(
+        "dtw", mods, store_sig=True, flag=MapFlag.DTW_EVALUATE_CHAINS))
+    # the widest call of this checkout's first run
+    first = calls[:len(calls) // 4]
+    a, k = max(first, key=lambda c: c[0][0].shape[0] * c[0][0].shape[1] * c[1]["max_radius"])
+    fns = {who: (lambda m=m: m["dtw"].dtw_banded_batch(*a, **k)) for who, m in mods.items()}
+    row["dtw_equal"] = torch.equal(fns["this"](), fns["other"]())
+    ms = {"this": [], "other": []}
+    for who in ORDER[:4]:
+        ms[who].append(call_ms(fns[who], 3))
+    s = summary(ms)
+    row["widest_call"] = {"pairs": a[0].shape[0], "max_len": a[0].shape[1],
+                          "max_radius": k["max_radius"], "calls_a_run": len(first),
+                          "call_ms": s,
+                          "speedup": s["other"]["median"] / s["this"]["median"]}
+    return row
 
 
 def compare_fixture(mods) -> dict:
@@ -274,7 +358,7 @@ def device_busy() -> dict:
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    names = ("events", *CELLS, "fixture", "peaks", "scans", "busy")
+    names = ("events", *CELLS, "fixture", "peaks", "scans", "filter", "dtw", "busy")
     if not argv or any(a not in names for a in argv[1:]):
         print("usage: python -m rawhash_tpu_torch.profiling.compare_events "
               f"OTHER_CHECKOUT [{' '.join(names)}]", file=sys.stderr)
@@ -289,23 +373,28 @@ def run(other: Path, names) -> int:
     """The named workloads against the checkout at `other`; 0 if the
     outputs and records were equal."""
     load_other(other, "map.engine")
-    mods = {"this": {"step": device_step, "events": this_events,
-                     "engine": eng_mod.MappingEngine, "build": this_build},
+    mods = {"this": {"step": device_step, "events": this_events, "sketch": this_sketch,
+                     "dtw": this_dtw, "engine": eng_mod.MappingEngine,
+                     "build": this_build},
             "other": {"step": sys.modules[f"{OTHER}.map.device_step"],
                       "events": sys.modules[f"{OTHER}.signal.events"],
+                      "sketch": sys.modules[f"{OTHER}.sketch.device"],
+                      "dtw": importlib.import_module(f"{OTHER}.dtw.device"),
                       "engine": sys.modules[f"{OTHER}.map.engine"].MappingEngine,
                       "build": sys.modules[f"{OTHER}._build"]}}
     workloads = {"events": lambda: compare_events(mods),
                  **{c: (lambda c=c: compare_cell(c, mods)) for c in CELLS},
                  "fixture": lambda: compare_fixture(mods),
                  "peaks": lambda: compare_peaks(mods), "scans": lambda: compare_scans(mods),
+                 "filter": lambda: compare_filter(mods), "dtw": lambda: compare_dtw(mods),
                  "busy": device_busy}
     print(card(), flush=True)
     ok = True
     for name in names:
         row = workloads[name]()
         print(json.dumps(row), flush=True)
-        ok &= row.get("equal", True) and row.get("records_equal", True)
+        ok &= (row.get("equal", True) and row.get("records_equal", True)
+               and row.get("dtw_equal", True))
     return 0 if ok else 1
 
 

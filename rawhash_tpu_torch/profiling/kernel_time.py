@@ -24,7 +24,9 @@ the same input, and the peak detector (K5); then the host path of one
 ordered-sum call, piece by piece (`host_pieces`).  With --probe, also K6's
 fixed part and its level 0 apart (`scan_probe`) and where a launch's time
 goes, phase by phase, from a build of csrc/ordered_scan.cu that stamps each
-warp's clock (`scan_stamps`).  It needs an NVIDIA GPU and exits non-zero
+warp's clock (`scan_stamps`), and the diff filter's (K7) cycles an event
+from a build of csrc/diff_filter.cu that stamps each stepping warp's tile
+loop (`filter_stamps`).  It needs an NVIDIA GPU and exits non-zero
 without one.
 """
 
@@ -211,31 +213,34 @@ STAMPS, EXIT, SM = 9, 7, 8  # words a warp, its exit and SM-id slots (ordered_sc
 PHASES = {2: "first_round", 3: "level0", 4: "barrier", 5: "levels", 6: "down"}
 
 
-def stamp_library():
-    """csrc/ordered_scan.cu built with -DRH_SCAN_STAMPS (its kernels stamp
-    each warp's clock at their phases), cached by the source's hash under
-    build/rawhash_tpu_torch/stamps."""
+def stamp_library(name: str = "ordered_scan", define: str = "RH_SCAN_STAMPS"):
+    """csrc/<name>.cu built with -D<define> (its kernels stamp clocks:
+    ordered_scan each warp's phases, diff_filter each stepping warp's tile
+    loop), cached by the source's hash under build/rawhash_tpu_torch/stamps."""
     import ctypes
     import hashlib
 
     from .._build import BUILD_DIR, CSRC, NVCC_FLAGS, _run, nvcc_path
 
-    srcs = (CSRC / "ordered_scan.cu", CSRC / "ordered_scan.cuh")
+    srcs = (CSRC / f"{name}.cu", CSRC / f"{name}.cuh")
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in srcs:
         h.update(src.read_bytes())
-    so = BUILD_DIR / "stamps" / f"ordered_scan_stamps_{h.hexdigest()[:16]}.so"
+    so = BUILD_DIR / "stamps" / f"{name}_stamps_{h.hexdigest()[:16]}.so"
     if not so.exists():
         so.parent.mkdir(parents=True, exist_ok=True)
-        _run([[nvcc_path(), *NVCC_FLAGS, "-DRH_SCAN_STAMPS", "-shared", "-o", str(so),
+        _run([[nvcc_path(), *NVCC_FLAGS, f"-D{define}", "-shared", "-o", str(so),
                str(srcs[0])]])
     lib = ctypes.CDLL(str(so))
-    P, LL, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    for name, args in (("rh_ordered_prefix", [P, LL, P, P, LL, I, I, I, P]),
-                       ("rh_ordered_sum", [P, LL, P, P, I, I, P]),
-                       ("rh_scan_set_stamps", [P])):
-        getattr(lib, name).argtypes = args
-        getattr(lib, name).restype = I
+    P, LL, I, F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
+    entries = {"ordered_scan": (("rh_ordered_prefix", [P, LL, P, P, LL, I, I, I, P]),
+                                ("rh_ordered_sum", [P, LL, P, P, I, I, P]),
+                                ("rh_scan_set_stamps", [P])),
+               "diff_filter": (("rh_diff_filter", [P, P, P, I, I, F, P]),
+                               ("rh_diff_set_stamps", [P]))}[name]
+    for entry, args in entries:
+        getattr(lib, entry).argtypes = args
+        getattr(lib, entry).restype = I
     return lib
 
 
@@ -338,6 +343,81 @@ def host_pieces(n: int = 2000) -> dict:
     return out
 
 
+def filter_inputs(preset: str, l: int, e_cap: int) -> tuple:
+    """(events, n_ev, diff): the diff filter's inputs as the events stage
+    gives them on one chunk of B nanopore-like reads of l samples (seed 3)
+    on the card, caught from this checkout's stage."""
+    from ..map.device_step import events_and_sketch
+    from ..signal.events import NormCarry
+    from ..sketch import device as sk
+
+    io, mo = synthetic.options(preset)
+    dev = torch.device("cuda")
+    sig = torch.from_numpy(synthetic.signal_chunk(np.random.default_rng(3), B, l)).to(dev)
+    slen = torch.full((B,), l, dtype=torch.int32, device=dev)
+    orig, caught = sk._diff_filter, []
+
+    def spy(*a):
+        caught.append(a)
+        return orig(*a)
+    spy.__dict__ = orig.__dict__  # the launch counter on the module's name
+    sk._diff_filter = spy
+    try:
+        events_and_sketch(
+            sig, slen, NormCarry.zeros(B, dev), window_length1=mo.window_length1,
+            window_length2=mo.window_length2, threshold1=mo.threshold1,
+            threshold2=mo.threshold2, peak_height=mo.peak_height, e_cap=e_cap,
+            min_events=mo.min_events, diff=io.diff, w=io.w, e=io.e, q=io.q, k=io.k,
+            fine_min=io.fine_min, fine_max=io.fine_max, fine_range=io.fine_range)
+    finally:
+        sk._diff_filter = orig
+    return caught[0]
+
+
+FILTER_SHAPES = (("viral", 4000, 768), ("ava", 28672, 16384))
+
+
+def filter_stamps() -> dict:
+    """Where K7's stepping warps spend their cycles on the stage's own
+    filter inputs at the viral and ava shapes, from the stamp build (the
+    second of two launches): cycles an event of the tile loop (median and
+    max over the groups), cycles from entry to the loop, and the kernel's
+    SASS opcodes (the chain an event: FADD, FSETP, FSEL)."""
+    import ctypes
+
+    from ..sketch.device import _diff_filter_plain
+    from .fill_loop_overhead import sass_ops
+
+    lib = stamp_library("diff_filter", "RH_DF_STAMPS")
+    out = {}
+    for preset, l, e_cap in FILTER_SHAPES:
+        ev, n_ev, diff = filter_inputs(preset, l, e_cap)
+        b, e = ev.shape
+        stamps = torch.zeros(4 * ((b + 31) // 32), dtype=torch.int64, device="cuda")
+        keep = torch.empty((b, e), dtype=torch.bool, device="cuda")
+        assert lib.rh_diff_set_stamps(ctypes.c_void_p(stamps.data_ptr())) == 0
+        try:
+            for _ in range(2):
+                stamps.zero_()
+                assert lib.rh_diff_filter(ev.data_ptr(), n_ev.data_ptr(), keep.data_ptr(),
+                                          b, e, diff,
+                                          torch.cuda.current_stream().cuda_stream) == 0
+                torch.cuda.synchronize()
+        finally:
+            lib.rh_diff_set_stamps(None)
+        st = stamps.view(-1, 4).cpu().numpy()
+        st = st[st[:, 3] > 0]
+        per_event = (st[:, 2] - st[:, 1]) / st[:, 3]
+        out[preset] = {"shape": [b, e], "n_live": int(n_ev.max()),
+                       "equal": bool(torch.equal(keep, _diff_filter_plain(ev, n_ev, diff))),
+                       "loop_cycles_per_event": {"median": float(np.median(per_event)),
+                                                 "max": float(per_event.max())},
+                       "entry_to_loop_cycles": float(np.median(st[:, 1] - st[:, 0]))}
+    from .._build import build
+    out["sass"] = sass_ops(build(), "diff_filter_kernel")
+    return out
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
@@ -354,6 +434,7 @@ def main(argv=None) -> int:
         for l in SHAPES:
             print(json.dumps({"l": l, "probe_device_ms": scan_probe(l)}), flush=True)
             print(json.dumps({"l": l, "stamps": scan_stamps(l)}), flush=True)
+        print(json.dumps({"filter_stamps": filter_stamps()}), flush=True)
     return 0
 
 

@@ -308,3 +308,47 @@ def test_scan_stamp_phases():
     assert got["barrier_cycles"] == {"median": 20.0, "max": 50.0}
     assert got["levels_cycles"] == {"median": 180.0, "max": 180.0}
     assert "down_cycles" not in got
+
+
+def _xla_adds_by_walk(n: int) -> int:
+    """The adds of the plain version's `_cumsum` order on n values, walked a
+    value at a time as csrc/dtw_banded.cuh's RhXlaLevel takes them: a block's
+    first value is copied, every other one added; a level of more than 16
+    values also adds each value to its blocks' prefix, and passes its block
+    totals up."""
+    if n <= 16:
+        return max(n - 1, 0)
+    blocks = -(-n // 16)
+    inner = sum(min(16, n - 16 * g) - 1 for g in range(blocks))
+    return inner + n + _xla_adds_by_walk(blocks)
+
+
+@pytest.mark.parametrize("n", [1, 9, 16, 17, 33, 256, 257, 513, 1025, 4097, 65537])
+def test_xla_adds_count_the_levels(n):
+    assert bounds.xla_adds(n) == _xla_adds_by_walk(n)
+    assert bounds.xla_adds(n) >= n - 1
+
+
+def test_dtw_bound(boost_clock):
+    """K8 at the dtw cell's widest call (36401 pairs of up to 180 columns,
+    width 33): its adds and mins a slot a column over the pairs' own
+    columns; the bytes of the pairs' values; the longest pair's chain of
+    columns at the ALU latency, log2(width) minimum steps a column."""
+    lat = {"viaddmnmx": 4.0, "fsetp_plop3_sel": 14.0}
+    pairs, max_len, width, columns, values = 36401, 180, 33, 3_500_000, 6_000_000
+    got = bounds.dtw_bound(pairs, max_len, width, lat, columns=columns, values=values)
+    per_slot = columns * width
+    assert got["class_ms"]["fp32_minmax"] == pytest.approx(
+        4 * per_slot / (132 * 64 * HZ) * 1e3)
+    assert got["class_ms"]["fp32"] == pytest.approx(
+        (4 * per_slot + columns * bounds.xla_adds(width)) / (132 * 128 * HZ) * 1e3)
+    assert got["class_ms"]["bytes"] == pytest.approx(
+        (4 * values + 16 * pairs) / 3.35e12 * 1e3)
+    assert got["class_ms"]["critical_path"] == pytest.approx(
+        max_len * (7 + 6) * 4.0 / HZ * 1e3)
+    assert got["bound_class"] == "fp32_minmax"
+    # without the data's own counts, every pair runs max_len columns
+    full = bounds.dtw_bound(pairs, max_len, width)
+    assert full["class_ms"]["fp32_minmax"] == pytest.approx(
+        4 * pairs * max_len * width / (132 * 64 * HZ) * 1e3)
+    assert "critical_path" not in full["class_ms"]

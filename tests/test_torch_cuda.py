@@ -292,9 +292,10 @@ def test_ava_fixture_on_the_card_matches_cpu(cuda_device, monkeypatch, tail):
 
 @pytest.mark.cuda
 def test_dtw_banded_batch_on_the_card_matches_cpu(cuda_device):
-    """The plain PyTorch banded DTW on the card against its CPU run: pairs
-    of 12-60 events plus one of 512, per-pair radii 1-16."""
-    from rawhash_tpu_torch.dtw.device import dtw_banded_batch_host
+    """The banded DTW on the card (the kernel, one launch) against its CPU
+    run (the plain version): pairs of 12-60 events plus one of 512,
+    per-pair radii 1-16, every cost bit-equal."""
+    from rawhash_tpu_torch.dtw.device import dtw_banded_batch, dtw_banded_batch_host
 
     rng = np.random.default_rng(5)
     pairs = [(rng.normal(0, 1, int(rng.integers(12, 61))).astype(np.float32),
@@ -303,9 +304,33 @@ def test_dtw_banded_batch_on_the_card_matches_cpu(cuda_device):
     pairs.append((rng.normal(0, 1, 512).astype(np.float32),
                   rng.normal(0, 1, 500).astype(np.float32)))
     radii = rng.integers(1, 17, len(pairs))
+    before = dtw_banded_batch.launches
     got = dtw_banded_batch_host(pairs, radii, device=cuda_device)
+    assert dtw_banded_batch.launches == before + 1
     want = dtw_banded_batch_host(pairs, radii, device="cpu")
-    np.testing.assert_allclose(got, want, rtol=1e-4)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [4, 8, 16, 32, 64, 128, 256, 512])
+def test_dtw_banded_kernel_matches_plain(cuda_device, r):
+    """K8 against the plain version at widths 9-513 (the band in shared
+    memory) and 1025 (past it: the band in a global scratch), with the
+    edge cases of tests/test_torch_dtw_kernel.py: bit-equal, one launch a
+    call."""
+    from rawhash_tpu_torch.dtw import device as dd
+    from test_torch_dtw_kernel import batch
+
+    rng = np.random.default_rng(r)
+    max_len = max(40, 2 * r + 24) if r <= 64 else r + 40
+    args = [torch.from_numpy(x) for x in batch(rng, 24 if r >= 256 else 300, max_len, r)]
+    want = dd.dtw_banded_batch_plain(*args, max_radius=r)
+    before = dd.dtw_banded_batch.launches
+    got = dd.dtw_banded_batch(*(x.to(cuda_device) for x in args), max_radius=r)
+    torch.cuda.synchronize()
+    assert dd.dtw_banded_batch.launches == before + 1
+    assert torch.equal(got.cpu(), want)
+    assert (2 * r + 1 > dd.kernel("rh_dtw_shared_width", [])()) == (r == 512)
 
 
 @pytest.mark.cuda
@@ -435,13 +460,18 @@ def test_ordered_scan_kernels_on_two_devices(cuda_device, squares):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,e", [(3, 33), (256, 768), (40, 16384)])
-def test_diff_filter_kernel_matches_plain(cuda_device, b, e):
-    """n_ev 0, 1 and E: event 0 is kept whenever n_ev > 0."""
-    rng = np.random.default_rng(e)
+@pytest.mark.parametrize("b,e,n_lo,n_hi", [
+    (3, 33, 0, 33), (37, 100, 0, 100), (70, 48, 0, 48), (256, 768, 0, 768),
+    (40, 16384, 0, 16384), (256, 16384, 3000, 3440)])
+def test_diff_filter_kernel_matches_plain(cuda_device, b, e, n_lo, n_hi):
+    """n_ev 0, 1 and the longest: event 0 is kept whenever n_ev > 0.  E not
+    a multiple of 16 (33, 100: scalar loads and byte stores), a half tile
+    at the end (48), and the ava shape with ~3440 events a read (most
+    bytes the fill blocks')."""
+    rng = np.random.default_rng(e + n_lo)
     events = (np.round(rng.normal(0, 1.0, (b, e)) / 0.05) * 0.05).astype(np.float32)
-    n_ev = rng.integers(0, e + 1, b).astype(np.int32)
-    n_ev[:3] = [0, 1, e]
+    n_ev = rng.integers(n_lo, n_hi + 1, b).astype(np.int32)
+    n_ev[:3] = [0, 1, n_hi]
     args = [torch.from_numpy(x) for x in (events, n_ev)]
     before = sk._diff_filter.launches
     got = sk._diff_filter(*(a.to(cuda_device) for a in args), 0.35)

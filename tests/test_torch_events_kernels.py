@@ -332,6 +332,26 @@ def test_diff_filter_header_matches_plain(seed, b, e):
         assert 0 < got[2].sum() <= e and (got[2].sum() == e) == (diff == 0.0)
 
 
+@pytest.mark.parametrize("e", [1, 33, 768])
+def test_diff_filter_tiles_at_their_edges(e):
+    """The tile step at the tiles' edges: n_ev 0, 1, 31, 32, 33, 63 and E
+    (and past E) in one group of 32 reads, and a second group of 8 whose
+    reads are all short, so its bytes past its first tile are the fill's;
+    event values on diff's edge."""
+    rng = np.random.default_rng(e)
+    edges = [0, 1, 31, 32, 33, 63, e, e + 5]
+    b = 40
+    ev, _ = _events(rng, b, e)
+    n_ev = np.array([edges[i % len(edges)] for i in range(32)]
+                    + list(rng.integers(0, 3, b - 32)), np.int32)
+    for diff in (DIFF, 0.0):
+        got = host_diff(ev, n_ev, diff)
+        want = tsk._diff_filter_plain(torch.from_numpy(ev), torch.from_numpy(n_ev),
+                                      diff).numpy()
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(want.sum(1) > 0, np.minimum(n_ev, e) > 0)
+
+
 @pytest.mark.parametrize("seed,b,l", [(1, 4, 4000), (2, 3, 257)])
 def test_plain_peaks_match_jax(seed, b, l):
     """The plain detector equals the JAX package's _gen_peaks on identical
