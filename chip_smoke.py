@@ -112,10 +112,14 @@ Phases, each printed as one JSON line and each fatal on failure:
                mapped as one batch: precision >= 0.12 and recall >= 0.65
  14. dtw       D1's genome indexed with --store-sig, `-x viral
                --dtw-evaluate-chains`, 1 x 256 reads, the banded DTW on its
-               kernel (csrc/dtw_banded.cu); every dtw_banded_batch call
-               timed (CUDA events), the widest one held bit for bit against
-               the plain version on the same inputs on the card (max abs
-               err 0) and timed three ways beside it and its bound
+               kernel (csrc/dtw_banded.cu: ragged pairs, the long ones a
+               warp each); every call timed (the host wrapper's whole call,
+               the kernel's by CUDA events), the widest one held bit for bit
+               against the plain version on the same pairs padded, on the
+               card (max abs err 0), and timed three ways beside it and its
+               bound, with the host wrapper's whole call, the bytes it
+               copied, T and the pairs on each path; the kernel again with
+               every pair on a thread, bit for bit
  15. rmq, bw_long D1 with --rmq, then with --bw-long at 5x the preset's --bw,
                1 x 256 reads each
  16. dist      the sharded engine (--n-shards 1) in a one-rank NCCL process
@@ -1493,74 +1497,117 @@ def phase_ava_quality(torch, dev) -> dict:
 
 def phase_dtw(torch, dev, lat) -> dict:
     """D1's genome indexed with --store-sig and mapped with
-    --dtw-evaluate-chains (1 x 256 reads), the banded DTW on its kernel;
-    each dtw_banded_batch call timed with CUDA events; the widest call
-    (pairs x length x radius) held bit for bit against the plain version
-    on the same inputs on the card, and timed three ways
+    --dtw-evaluate-chains (1 x 256 reads), the banded DTW on its kernel:
+    every dtw_banded_batch_host call timed on the host clock (the whole
+    call: pack, one H2D, launch, D2H) and every kernel call
+    (dtw_banded_ragged) with CUDA events.  On the widest call: the kernel's
+    costs held bit for bit against the plain version on the same pairs
+    padded to the longest, on the card; the kernel timed three ways
     (profiling/kernel_time.py: device time by a CUDA graph of 5 launches,
-    call time, host time) beside the plain version's one call and its
-    bound (profiling/bounds.py::dtw_bound, the pairs' own columns and the
-    card's latencies `lat`)."""
+    call time, host time) beside the plain version's one call and its bound
+    (profiling/bounds.py::dtw_bound, the pairs' own columns, the longest
+    pair's chain at the card's latencies `lat`); the host wrapper's whole
+    call and its packing timed (median of 5), the bytes it copied to the
+    card, the column histogram, T and the pairs on each path; then the
+    kernel again with every pair on a thread, bit for bit."""
     from rawhash_tpu_torch.config import MapFlag
     from rawhash_tpu_torch.dtw import device as dtw_device
     from rawhash_tpu_torch.profiling import bounds
     from rawhash_tpu_torch.profiling.kernel_time import call_ms, device_ms, host_ms
 
-    fn = dtw_device.dtw_banded_batch
-    calls = []
+    counter = dtw_device.dtw_banded_batch  # the kernel's launches, both entries
+    ragged, host_fn = dtw_device.dtw_banded_ragged, dtw_device.dtw_banded_batch_host
+    calls, host_calls = [], []
 
     def timed(*a, **k):
         s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         s.record()
-        out = fn(*a, **k)
+        out = ragged(*a, **k)
         e.record()
         calls.append((s, e, a, k, out))
         return out
-    # the same attributes: the wrapper counts its launches on its module's
-    # name, which is `timed` during the run
-    timed.__dict__ = fn.__dict__
+
+    def timed_host(pairs, radii, device="cuda"):
+        t0 = time.perf_counter()
+        out = host_fn(pairs, radii, device)
+        host_calls.append((time.perf_counter() - t0, pairs, radii))
+        return out
 
     def dtw_mode(mo):
         mo.flag |= MapFlag.DTW_EVALUATE_CHAINS
 
-    dtw_device.dtw_banded_batch = timed
+    dtw_device.dtw_banded_ragged = timed
+    dtw_device.dtw_banded_batch_host = timed_host
     try:
         row = phase_deployment(torch, dev, "dtw", 30_000, "viral", 1, 1200, 3072, 7,
                                {}, store_sig=True, configure=dtw_mode)
     finally:
-        dtw_device.dtw_banded_batch = fn
-    check(calls, "dtw: dtw_banded_batch was never called")
+        dtw_device.dtw_banded_ragged = ragged
+        dtw_device.dtw_banded_batch_host = host_fn
+    check(calls and len(calls) == len(host_calls),
+          f"dtw: {len(host_calls)} host wrapper calls, {len(calls)} kernel calls")
     torch.cuda.synchronize()
     ms = [s.elapsed_time(e) for s, e, *_ in calls]
 
     def work(c):
-        a, k = c[2], c[3]
-        return a[0].shape[0] * a[0].shape[1] * k["max_radius"]
+        return int(c[2][2].sum()) * c[3]["max_radius"]  # columns x radius
 
     widest = max(range(len(calls)), key=lambda i: work(calls[i]))
     _, _, a, k, got = calls[widest]
+    _, pairs, radii = host_calls[widest]
     # the launches below compare and time the kernel: the main path's count
     # is the run's
-    counted = fn.launches
-    want, plain_ms = timed_once(torch, lambda: dtw_device.dtw_banded_batch_plain(*a, **k))
+    counted = counter.launches
+    values, a_off, a_len, b_off, b_len, radius, order = a
+    longest = int(a_len.max())
+    r = k["max_radius"]
+    width = 2 * r + 1
+    pad = dtw_device._pad_rows
+    plain_in = (pad(values, a_off, a_len, longest), a_len,
+                pad(values, b_off, b_len, longest), b_len, radius)
+    want, plain_ms = timed_once(
+        torch, lambda: dtw_device.dtw_banded_batch_plain(*plain_in, max_radius=r))
     err = float((got - want).abs().max())
     check(torch.equal(got, want), f"dtw: the kernel's costs differ from the plain "
           f"version's on the widest call (max abs err {err})")
-    pairs, max_len = a[0].shape
-    width = 2 * k["max_radius"] + 1
-    a_len, b_len = a[1].long().clamp(0, max_len), a[3].long().clamp(0, max_len)
-    columns, values = int(a_len.sum()), int(a_len.sum() + b_len.sum())
-    call = lambda: fn(*a, **k)  # noqa: E731
+    n_pairs = a_len.shape[0]
+    cols = a_len.cpu().numpy()
+    columns, n_values = int(cols.sum()), int(values.shape[0])
+    threshold = dtw_device.WARP_COLUMNS
+    on_warps = min(k["long_pairs"], int((cols >= threshold).sum()))
+    call = lambda: ragged(*a, **k)  # noqa: E731
+    whole = lambda: host_fn(pairs, radii, "cuda")  # noqa: E731
+    whole()
+    whole_ms, pack_ms = [], []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        whole()
+        whole_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        dtw_device.pack_pairs(pairs, radii)
+        pack_ms.append((time.perf_counter() - t0) * 1e3)
     out = dict(calls=len(calls), total_ms=float(sum(ms)), median_ms=float(np.median(ms)),
-               widest_pairs=pairs, widest_max_len=max_len,
-               widest_max_radius=k["max_radius"], widest_ms=ms[widest],
+               widest_pairs=n_pairs, widest_longest=longest, widest_max_radius=r,
+               widest_ms=ms[widest], widest_host_call_ms=host_calls[widest][0] * 1e3,
                max_abs_err=err, ms=device_ms(call, 5), call_ms=call_ms(call),
                host_ms=host_ms(call, 5), plain_ms=plain_ms,
+               whole_call_ms=float(np.median(whole_ms)), pack_ms=float(np.median(pack_ms)),
+               h2d_bytes=values.untyped_storage().nbytes(),
+               padded_bytes=2 * 4 * n_pairs * longest,
+               warp_columns=threshold, pairs_on_warps=on_warps,
+               pairs_on_threads=n_pairs - on_warps,
                share_of_cell=sum(ms) / 1e3 / row["seconds"],
-               columns=columns, longest=int(a_len.max()),
-               **bounds.dtw_bound(pairs, max_len, width, lat, columns=columns,
-                                  values=values))
-    fn.launches = counted
+               columns=columns, values=n_values,
+               pairs_with_columns_at_least={t: int((cols >= t).sum())
+                                            for t in (2, 4, 8, 16, 24, 32, 64, 128)},
+               **bounds.dtw_bound(n_pairs, longest, width, lat, columns=columns,
+                                  values=n_values))
+    # the thread path alone at the main path's shapes (the sweep of T is
+    # profiling/kernel_time.py --dtw's)
+    check(torch.equal(ragged(*a, **dict(k, threshold=2 ** 30, long_pairs=0)), want),
+          "dtw: the kernel with every pair on a thread differs from the plain version")
+    counter.launches = counted
     emit({"phase": "dtw_banded_batch", **out})
     row["dtw_banded_batch"] = out
     return row
@@ -2063,8 +2110,11 @@ def main(argv=None) -> int:
             "ms": dtw["ms"], "plain_ms": dtw["plain_ms"], "bound_ms": dtw["bound_ms"],
             "bound_by": bound_by(dtw), "library_ms": None,
             "call_ms": dtw["call_ms"], "host_ms": dtw["host_ms"],
-            "shape": [dtw["widest_pairs"], dtw["widest_max_len"],
+            # pairs, the longest pair's columns, the band's width
+            "shape": [dtw["widest_pairs"], dtw["widest_longest"],
                       2 * dtw["widest_max_radius"] + 1],
+            **{key: dtw[key] for key in ("whole_call_ms", "h2d_bytes", "warp_columns",
+                                         "pairs_on_warps", "pairs_on_threads")},
         })
         emit({"kernels": kernels,
               **{f"{c}_bp_per_s": runs[c][0]["bp_per_s"]

@@ -42,10 +42,12 @@ JSON line per workload (all of them, or those named):
   dtw       chip_smoke.py's dtw cell (D1's genome indexed with --store-sig,
             1 x 256 reads, --dtw-evaluate-chains), mapped by a fresh engine
             of each checkout a run: bp/s and the stage sums, the records
-            equal; then each checkout's `dtw_banded_batch` on the run's
-            widest call (caught during this checkout's first run): call ms
-            (kernel_time.call_ms, one call on an idle card, the median of
-            3), the costs equal;
+            equal; then, on the run's widest call (caught from this
+            checkout's host wrapper), each checkout's host wrapper whole
+            (dtw_banded_batch_host, host clock) and its kernel alone (the
+            ragged entry on the pairs packed, or a checkout's padded
+            dtw_banded_batch on them padded): call, host and device ms
+            (kernel_time.call_ms, host_ms, device_ms); the costs equal;
   busy      one D1 batch of this checkout under torch.profiler: the share of
             the wall time in which the card ran a kernel (the union of the
             kernels' intervals over the wall time).
@@ -230,24 +232,56 @@ def compare_filter(mods) -> dict:
 
 def compare_dtw(mods) -> dict:
     """The dtw cell in turns, and the two checkouts' banded DTW on its
-    widest call."""
-    from .kernel_time import call_ms
+    widest call: each host wrapper's whole call (dtw_banded_batch_host:
+    pack, copy, launch, copy back; host clock, the median of 3) and each
+    kernel on the call's pairs, call, host and device ms (a checkout with
+    dtw_banded_ragged on them packed, one without it its dtw_banded_batch
+    on them padded to the longest); the costs equal."""
+    from .kernel_time import call_ms, device_ms, host_ms
 
-    row, calls = caught_call(this_dtw, "dtw_banded_batch", lambda: compare_cell(
+    row, calls = caught_call(this_dtw, "dtw_banded_batch_host", lambda: compare_cell(
         "dtw", mods, store_sig=True, flag=MapFlag.DTW_EVALUATE_CHAINS))
-    # the widest call of this checkout's first run
-    first = calls[:len(calls) // 4]
-    a, k = max(first, key=lambda c: c[0][0].shape[0] * c[0][0].shape[1] * c[1]["max_radius"])
-    fns = {who: (lambda m=m: m["dtw"].dtw_banded_batch(*a, **k)) for who, m in mods.items()}
-    row["dtw_equal"] = torch.equal(fns["this"](), fns["other"]())
-    ms = {"this": [], "other": []}
+    pairs, radii = max(((a[0], a[1]) for a, _ in calls),
+                       key=lambda c: len(c[0]) * max(c[1]))
+    whole = {who: (lambda m=m: m["dtw"].dtw_banded_batch_host(pairs, radii, DEV))
+             for who, m in mods.items()}
+    row["dtw_equal"] = bool(np.array_equal(whole["this"](), whole["other"]()))
+    packed = this_dtw.pack_pairs(pairs, radii)
+    r = this_dtw._pow2_at_least(int(packed[5].max()), 4)
+    ragged = [torch.from_numpy(x).to(DEV) for x in packed[:7]]
+    longest = int(packed[2].max())
+    pad = this_dtw._pad_rows
+    padded = (pad(ragged[0], ragged[1], ragged[2], longest), ragged[2],
+              pad(ragged[0], ragged[3], ragged[4], longest), ragged[4], ragged[5])
+
+    def kernel_call(m):
+        if hasattr(m["dtw"], "dtw_banded_ragged"):
+            return lambda: m["dtw"].dtw_banded_ragged(*ragged, max_radius=r,
+                                                      long_pairs=packed[7])
+        return lambda: m["dtw"].dtw_banded_batch(*padded, max_radius=r)
+
+    fns = {who: kernel_call(m) for who, m in mods.items()}
+    row["dtw_equal"] &= bool(torch.equal(fns["this"](), fns["other"]()))
+    ms = {key: {"this": [], "other": []}
+          for key in ("whole_ms", "call_ms", "host_ms", "device_ms")}
     for who in ORDER[:4]:
-        ms[who].append(call_ms(fns[who], 3))
-    s = summary(ms)
-    row["widest_call"] = {"pairs": a[0].shape[0], "max_len": a[0].shape[1],
-                          "max_radius": k["max_radius"], "calls_a_run": len(first),
-                          "call_ms": s,
-                          "speedup": s["other"]["median"] / s["this"]["median"]}
+        runs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            whole[who]()
+            runs.append((time.perf_counter() - t0) * 1e3)
+        ms["whole_ms"][who].append(float(np.median(runs)))
+        ms["call_ms"][who].append(call_ms(fns[who], 3))
+        ms["host_ms"][who].append(host_ms(fns[who], 5))
+        ms["device_ms"][who].append(device_ms(fns[who], 5))
+    row["widest_call"] = {"pairs": len(pairs), "longest": longest, "max_radius": r,
+                          "calls_a_run": len(calls) // 5}
+    for key, v in ms.items():
+        s = summary(v)
+        row["widest_call"][key] = s
+        row["widest_call"][key.replace("_ms", "_speedup")] = (
+            s["other"]["median"] / s["this"]["median"])
     return row
 
 

@@ -15,7 +15,7 @@ kernels timed so.
 - `host_ms`: the host clock around n calls without a sync, divided by n:
   the wrapper's host path alone (the launches only queue).
 
-    python -m rawhash_tpu_torch.profiling.kernel_time [--probe]
+    python -m rawhash_tpu_torch.profiling.kernel_time [--probe | --dtw]
 
 prints the card's name and power limit, then one JSON line per shape of
 the events stage (256 reads of 4000 and of 28672 samples): the ordered
@@ -26,8 +26,11 @@ fixed part and its level 0 apart (`scan_probe`) and where a launch's time
 goes, phase by phase, from a build of csrc/ordered_scan.cu that stamps each
 warp's clock (`scan_stamps`), and the diff filter's (K7) cycles an event
 from a build of csrc/diff_filter.cu that stamps each stepping warp's tile
-loop (`filter_stamps`).  It needs an NVIDIA GPU and exits non-zero
-without one.
+loop (`filter_stamps`).  With --dtw, only the banded DTW (K8) on a batch
+shaped like the dtw cell's widest call (`dtw_cell_pairs`), its device
+time with the long pairs on warps from T = 8 to 48 columns and with every
+pair on a thread, in turns, each bit-equal to the plain version
+(`dtw_paths`).  It needs an NVIDIA GPU and exits non-zero without one.
 """
 
 from __future__ import annotations
@@ -418,6 +421,67 @@ def filter_stamps() -> dict:
     return out
 
 
+# the dtw cell's widest call by columns, as chip_smoke.py's dtw phase
+# counts it (`pairs_with_columns_at_least`): (lo, hi, pairs with lo to
+# hi - 1 columns)
+DTW_COLUMNS = ((2, 4, 28734), (4, 16, 5954), (16, 24, 1060), (24, 32, 364),
+               (32, 64, 267), (64, 128, 21), (180, 181, 1))
+DTW_THRESHOLDS = (8, 16, 24, 32, 48)
+
+
+def dtw_cell_pairs(seed: int = 5) -> tuple:
+    """(pairs, radii) shaped like the dtw cell's widest call: its column
+    counts (DTW_COLUMNS, 36401 pairs), each pair's b up to a quarter
+    shorter than its a, the radius a tenth of b (the presets'
+    dtw_band_radius_frac) and at most 16, so the band has 33 slots."""
+    rng = np.random.default_rng(seed)
+    cols = np.concatenate([rng.integers(lo, hi, n) for lo, hi, n in DTW_COLUMNS])
+    rng.shuffle(cols)
+    pairs, radii = [], []
+    for n in cols.tolist():
+        m = max(1, n - int(rng.integers(0, n // 4 + 1)))
+        pairs.append((rng.normal(0, 1, n).astype(np.float32),
+                      rng.normal(0, 1, m).astype(np.float32)))
+        radii.append(min(16, max(1, int(m * 0.1))))
+    return pairs, radii
+
+
+def dtw_paths(dev: str = "cuda") -> dict:
+    """K8 on `dtw_cell_pairs`, packed as the host wrapper packs them: its
+    device time (`device_ms`, 5 launches a graph) with the pairs of at
+    least T columns on warps for each T of DTW_THRESHOLDS and with every
+    pair on a thread, two rounds in turns (forward, then backward), the
+    median of each; each run first held bit for bit against the plain
+    version of the pairs padded."""
+    from ..dtw import device as dd
+
+    pairs, radii = dtw_cell_pairs()
+    values, *ints, _ = dd.pack_pairs(pairs, radii)
+    args = [torch.from_numpy(x).to(dev) for x in (values, *ints)]
+    r = dd._pow2_at_least(max(radii), 4)
+    a_len = args[2]
+    longest = int(a_len.max())
+    want = dd.dtw_banded_batch_plain(
+        dd._pad_rows(args[0], args[1], a_len, longest), a_len,
+        dd._pad_rows(args[0], args[3], args[4], longest), args[4], args[5],
+        max_radius=r)
+    cols = ints[1]
+    runs = {f"T{t}": dict(threshold=t, long_pairs=int((cols >= t).sum()))
+            for t in DTW_THRESHOLDS}
+    runs["threads"] = dict(threshold=2 ** 30, long_pairs=0)
+    equal = {name: bool(torch.equal(dd.dtw_banded_ragged(*args, max_radius=r, **kw), want))
+             for name, kw in runs.items()}
+    got = {name: [] for name in runs}
+    for _ in range(2):
+        for name, kw in (*runs.items(), *reversed(runs.items())):
+            got[name].append(device_ms(
+                lambda kw=kw: dd.dtw_banded_ragged(*args, max_radius=r, **kw), 5))
+    return {"pairs": len(pairs), "columns": int(cols.sum()), "longest": longest,
+            "width": 2 * r + 1, "equal": equal,
+            "pairs_on_warps": {name: kw["long_pairs"] for name, kw in runs.items()},
+            "device_ms": {name: float(np.median(t)) for name, t in got.items()}}
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
@@ -426,6 +490,10 @@ def main(argv=None) -> int:
     from ..signal import events
 
     print(card(), flush=True)
+    if "--dtw" in argv:
+        row = dtw_paths()
+        print(json.dumps({"dtw_paths": row}), flush=True)
+        return 0 if all(row["equal"].values()) else 1
     for l in SHAPES:
         print(json.dumps({"b": B, "l": l, "scans": scan_times(events, l),
                           "gen_peaks": peaks_times(events, l)}), flush=True)

@@ -142,7 +142,7 @@ _ARGTYPES = {
     "rh_ordered_sum": [_P, _LL, _P, _P, _I, _I, _P],
     "rh_events_peaks": [_P] * 4 + [_I] * 2 + [_F] * 3 + [_I] * 3 + [_P],
     "rh_diff_filter": [_P] * 3 + [_I] * 2 + [_F, _P],
-    "rh_dtw_banded": [_P] * 6 + [_I] * 3 + [_P, _P],
+    "rh_dtw_banded": [_P] * 9 + [_I] * 5 + [_P, _P],
 }
 
 

@@ -312,12 +312,14 @@ def test_dtw_banded_batch_on_the_card_matches_cpu(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("r", [4, 8, 16, 32, 64, 128, 256, 512])
+@pytest.mark.parametrize("r", [0, 1, 5, 4, 8, 16, 32, 48, 64, 80, 96, 127, 128, 256, 512])
 def test_dtw_banded_kernel_matches_plain(cuda_device, r):
-    """K8 against the plain version at widths 9-513 (the band in shared
-    memory) and 1025 (past it: the band in a global scratch), with the
-    edge cases of tests/test_torch_dtw_kernel.py: bit-equal, one launch a
-    call."""
+    """K8 against the plain version at widths 1, 3, 11 and 9-513 (the bands
+    in shared memory) and 1025 (past it: the thread path's bands in a
+    global scratch), with the edge cases of tests/test_torch_dtw_kernel.py,
+    through the padded entry: the kernel's own choice of paths, every pair
+    on a warp (threshold 0; widths 65-255 take the warp path's lags 3-8)
+    and every pair on a thread; bit-equal, one launch a call."""
     from rawhash_tpu_torch.dtw import device as dd
     from test_torch_dtw_kernel import batch
 
@@ -325,12 +327,53 @@ def test_dtw_banded_kernel_matches_plain(cuda_device, r):
     max_len = max(40, 2 * r + 24) if r <= 64 else r + 40
     args = [torch.from_numpy(x) for x in batch(rng, 24 if r >= 256 else 300, max_len, r)]
     want = dd.dtw_banded_batch_plain(*args, max_radius=r)
+    width = 2 * r + 1
+    runs = [{}, {"threshold": 2 ** 30}, {"threshold": 0}]
+    on_card = [x.to(cuda_device) for x in args]
+    for kw in runs:
+        before = dd.dtw_banded_batch.launches
+        got = dd.dtw_banded_batch(*on_card, max_radius=r, **kw)
+        torch.cuda.synchronize()
+        assert dd.dtw_banded_batch.launches == before + 1
+        assert torch.equal(got.cpu(), want), kw
+    assert (width > dd.kernel("rh_dtw_shared_width", [])()) == (r == 512)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r_frac", [0.1, 0.3])
+def test_dtw_banded_ragged_on_a_dtw_cell_shaped_batch(cuda_device, r_frac):
+    """A batch shaped like the dtw cell's call: 6000 pairs of 1-7 events
+    and eight of 150-512 (band radii up to 16 or 48), through the host
+    wrapper (packed ragged, one launch) and the ragged entry with each
+    path forced, against the plain version on the pairs padded: every cost
+    bit-equal, one launch a call."""
+    from rawhash_tpu_torch.dtw import device as dd
+
+    rng = np.random.default_rng(int(r_frac * 10))
+    lens = np.concatenate([rng.integers(1, 8, 6000), rng.integers(150, 513, 8)])
+    rng.shuffle(lens)
+    pairs = []
+    for n in lens:
+        m = max(1, int(n) - int(rng.integers(0, max(2, int(n) // 8))))
+        x = rng.normal(0, 1, int(n)).astype(np.float32)
+        y = rng.normal(0, 1, m).astype(np.float32)
+        pairs.append((x, y) if rng.random() < 0.5 else (y, x))
+    radii = [max(1, int(min(int(n), 160) * r_frac)) for n in lens]
+    want = dd.dtw_banded_batch_host(pairs, radii, device="cpu")
     before = dd.dtw_banded_batch.launches
-    got = dd.dtw_banded_batch(*(x.to(cuda_device) for x in args), max_radius=r)
-    torch.cuda.synchronize()
+    got = dd.dtw_banded_batch_host(pairs, radii, device=cuda_device)
     assert dd.dtw_banded_batch.launches == before + 1
-    assert torch.equal(got.cpu(), want)
-    assert (2 * r + 1 > dd.kernel("rh_dtw_shared_width", [])()) == (r == 512)
+    np.testing.assert_array_equal(got, want)
+    values, *ints, n_long = dd.pack_pairs(pairs, radii)
+    assert n_long == 8
+    on_card = [torch.from_numpy(x).to(cuda_device) for x in (values, *ints)]
+    r = dd._pow2_at_least(max(radii), 4)
+    for kw in ({"long_pairs": n_long}, {"threshold": 0}, {"threshold": 2 ** 30}, {}):
+        before = dd.dtw_banded_batch.launches
+        got = dd.dtw_banded_ragged(*on_card, max_radius=r, **kw)
+        torch.cuda.synchronize()
+        assert dd.dtw_banded_batch.launches == before + 1
+        np.testing.assert_array_equal(got.cpu().numpy(), want, err_msg=str(kw))
 
 
 @pytest.mark.cuda
