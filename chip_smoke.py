@@ -1283,7 +1283,7 @@ def phase_deployment(torch, dev, name, genome_len, preset, n_batches,
     if keep is not None:
         keep.update(index=index, mopt=copy.deepcopy(mopt), reads=reads[:256],
                     read_len=read_len, all_reads=reads, batches=batches)
-    engine = eng_mod.MappingEngine(index, mopt, device=dev)
+    engine = eng_mod.MappingEngine(index, mopt, device=dev, trace=True)
     originals = catch_widest(caught)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1381,7 +1381,7 @@ def phase_ava(torch, dev, caught, workload) -> dict:
     _, mo = options("ava")
     mo.batch_reads = 256
     check(index.sig_target and index.n_seq == len(reads), "ava: not a signal-target index")
-    engine = MappingEngine(index, mo, device=dev)
+    engine = MappingEngine(index, mo, device=dev, trace=True)
     fills = []  # each fill call's live anchors a read
     originals = catch_widest(caught, lambda a: fills.append(a[3].cpu().numpy()))
     torch.cuda.synchronize()
@@ -1637,6 +1637,7 @@ def phase_pipeline(torch, dev, kept) -> dict:
     stage sums and the distinct CUDA streams K1 and K2 launched on: at
     depth 1 one, at depth 3 more than one (one a batch in flight)."""
     from rawhash_tpu_torch.map.engine import MappingEngine
+    from rawhash_tpu_torch.utils.timers import stage_walls
 
     out = {}
     for cell, k in kept.items():
@@ -1646,10 +1647,10 @@ def phase_pipeline(torch, dev, kept) -> dict:
         runs = {"depth3": dict(depth=3, main_run=True, seconds=main["seconds"],
                                bp_per_s=main["bp_per_s"], streams=main["streams"],
                                stage_seconds=main["stage_seconds"],
-                               stage_sum=sum(main["stage_seconds"].values()))}
+                               stage_sum=sum(stage_walls(main["stage_seconds"]).values()))}
         mopt = copy.deepcopy(k["mopt"])
         mopt.pipeline_depth = 1
-        engine = MappingEngine(k["index"], mopt, device=dev)
+        engine = MappingEngine(k["index"], mopt, device=dev, trace=True)
         caught = {}
         originals = catch_widest(caught)
         torch.cuda.synchronize()
@@ -1668,7 +1669,7 @@ def phase_pipeline(torch, dev, kept) -> dict:
                    accuracy=n_correct / max(n_mapped, 1),
                    records_equal_main=records_of(results) == k["records"],
                    streams={n: len(v) for n, v in caught["streams"].items()},
-                   stage_seconds=stages, stage_sum=sum(stages.values()),
+                   stage_seconds=stages, stage_sum=sum(stage_walls(stages).values()),
                    stage_counts=dict(engine.profiler.counts),
                    device_tail=engine.device_tail,
                    anchor_regrows=engine.stats["anchor_regrows"])
@@ -1710,7 +1711,7 @@ def phase_dist(torch, dev, kept) -> dict:
         for cell, k in kept.items():
             mopt = copy.deepcopy(k["mopt"])
             mopt.n_shards = 1
-            engine = MappingEngine(k["index"], mopt, device=rank_dev)
+            engine = MappingEngine(k["index"], mopt, device=rank_dev, trace=True)
             n0 = (chain_fill.launches, chain_backtrack.launches)
             results, dt = map_timed(torch, engine, k)
             n_mapped, n_correct, bases = score_mapping(k["reads"], results, mopt,

@@ -132,6 +132,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--version", action="version", version="rawhash-tpu 0.1 (parity: RawHash2 2.1)")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="torch device the mapping runs on (default: cuda)")
+    p.add_argument("--profile", action="store_true",
+                   help="trace the engine's stages (each syncs the device "
+                        "at its end) and log their times")
     return p
 
 

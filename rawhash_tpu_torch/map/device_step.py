@@ -17,7 +17,6 @@ same code either way.
 
 from __future__ import annotations
 
-import time
 from typing import NamedTuple
 
 import torch
@@ -30,6 +29,9 @@ from ..sketch.device import sketch_batch
 
 U32_MAX = 0xFFFFFFFF
 I32_MAX = 0x7FFFFFFF
+# the stages of chunk_step and of tail_finish, in the order they run
+STEP_STAGES = ("events", "sketch", "lookup+expand", "sort", "fill")
+TAIL_STAGES = ("backtrack", "compact")
 
 
 class ChunkOut(NamedTuple):
@@ -69,27 +71,26 @@ class Lookup(NamedTuple):
 
 
 class _Stages:
-    """Wall time per stage into a StageProfiler, synchronising the current
-    stream at each mark so the time lands on the stage that spent it (no-op
-    without a profiler).  Only the current stream: batches in flight on
-    other streams go on, so with several in flight a stage's time is its
-    batch's, and the stages' sums may pass the wall time."""
+    """A step's stages one after another, each a span of the tracer (`prof`,
+    StageProfiler.stage with the chunk's ids bound) that syncs the current
+    stream at its mark, so the time lands on the stage that spent it; the
+    first also syncs at its start.  Each runs from the previous stage's
+    mark (the first from here) to its own, `mark(name)`, in the order of
+    `names`.  Only the current stream: batches in flight on other streams
+    go on, so with several in flight a stage's time is its batch's, and the
+    stages' sums may pass the wall time."""
 
-    def __init__(self, prof, device: torch.device):
-        self.prof = prof
-        self.device = device
-        self.t = self._now() if prof is not None else 0.0
-
-    def _now(self) -> float:
-        if self.device.type == "cuda":
-            torch.cuda.current_stream(self.device).synchronize()
-        return time.perf_counter()
+    def __init__(self, prof, device: torch.device, names: tuple):
+        self.prof, self.device, self.names = prof, device, iter(names)
+        self.span = prof(next(self.names), device=device, lead=True).__enter__()
 
     def mark(self, name: str) -> None:
-        if self.prof is not None:
-            now = self._now()
-            self.prof.add(name, now - self.t)
-            self.t = now
+        if name != self.span.name:
+            raise RuntimeError(f"stage {name!r} marked inside {self.span.name!r}")
+        self.span.__exit__(None, None, None)
+        nxt = next(self.names, None)
+        if nxt is not None:
+            self.span = self.prof(nxt, device=self.device).__enter__()
 
 
 def events_and_sketch(
@@ -238,12 +239,13 @@ def chunk_step(
     prof=None,
     lookup=None,
 ) -> ChunkOut:
-    """One chunk for a batch of reads.  `prof` (a StageProfiler) receives
-    the wall time of each stage: events, sketch, lookup+expand, sort,
+    """One chunk for a batch of reads.  `prof` (None: tracing off), the
+    tracer's span of a stage by name (StageProfiler.stage with the chunk's
+    ids bound), times each stage: events, sketch, lookup+expand, sort,
     fill.  With `all_vs_all`, hits go through merge_sort_fill's rank
     filter.  `lookup` takes lookup_expand's place (its arguments after
     didx, which it does not read): the sharded seed merge."""
-    stages = _Stages(prof, sig.device) if prof is not None else None
+    stages = None if prof is None else _Stages(prof, sig.device, STEP_STAGES)
     span = k + e - 1
     sig = sig.to(torch.float32)  # signal may arrive as f16
 
@@ -344,7 +346,7 @@ def tail_finish(out: ChunkOut, *, span: int, bw: int, min_cnt: int,
     carried-anchor re-pick of a chunk's sorted, filled anchors.  It reads
     `out` only, so a capacity regrow of k_cap or p_out reruns it alone on
     the same ChunkOut."""
-    stages = _Stages(prof, out.f.device) if prof is not None else None
+    stages = None if prof is None else _Stages(prof, out.f.device, TAIL_STAGES)
     stats = chain_backtrack(
         out.f, out.p, out.n_anchors, out.tpos, out.qpos,
         min_cnt=min_cnt, min_sc=min_sc, max_drop=bw, k_cap=k_cap, q_span=span,

@@ -202,7 +202,7 @@ def _run(args, iopt, mopt, t0: float, device, main: bool) -> int:
             log("no query files; only the index was constructed")
         return 0
 
-    engine = MappingEngine(index, mopt, device=device)
+    engine = MappingEngine(index, mopt, device=device, trace=args.profile)
     log(f"mid_occ = {mopt.mid_occ}; device = {engine.device}")
     su = None
     if mopt.flag & MapFlag.SEQUENCEUNTIL:
@@ -257,10 +257,11 @@ def _run(args, iopt, mopt, t0: float, device, main: bool) -> int:
             out.close()
 
     dt = time.time() - t0
-    depth = engine.pipeline_depth
-    overlap = (f" (per batch; {depth} batches in flight overlap, so the stages "
-               "may sum past the wall time)" if depth > 1 else "")
-    log(f"stage profile{overlap}: {engine.profiler.summary()}")
+    if args.profile:
+        depth = engine.pipeline_depth
+        overlap = (f" (per batch; {depth} batches in flight overlap, so the "
+                   "stages may sum past the wall time)" if depth > 1 else "")
+        log(f"stage profile{overlap}: {engine.profiler.summary()}")
     log(resource_summary(t0))
     log(f"mapped {n_mapped}/{n_reads} reads, {total_samples} samples in "
         f"{dt:.2f}s ({total_samples/max(dt,1e-9):.0f} samples/s)")

@@ -143,6 +143,7 @@ def records(results) -> list:
 def map_once(engine_cls, index, mopt, batches, bases_of):
     """(seconds, bp/s, stage sums, records) of one fresh engine's map."""
     engine = engine_cls(index, copy.deepcopy(mopt), device=DEV)
+    engine.profiler.on = True  # the stage sums (an older tracer ignores it)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     results = [r for batch in engine.map_stream(batches) for r in batch]

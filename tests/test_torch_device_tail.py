@@ -152,13 +152,13 @@ def test_device_tail_paf_matches_host_tail_and_jax(fixture, monkeypatch, preset)
 
 def test_device_tail_runs_the_backtrack(fixture, monkeypatch):
     """With the variable set the engine binds batches to the device tail and
-    its profile holds the backtrack and compact stages; without it, the
-    fixture's small widths stay on the host tail."""
+    its profile (tracing on) holds the backtrack and compact stages; without
+    it, the fixture's small widths stay on the host tail."""
     d = fixture
     index = load_index(str(d / "sensitive.rhi.npz"))
     reads = list(read_signals(str(d / "reads.sig.npz")))
     monkeypatch.setenv("RAWHASH_TPU_DEVICE_TAIL", "1")
-    eng = MappingEngine(index, options("sensitive")[1], device="cpu")
+    eng = MappingEngine(index, options("sensitive")[1], device="cpu", trace=True)
     assert eng.device_tail
     eng.map_batch(reads)
     assert {"backtrack", "compact"} <= set(eng.profiler.totals)
@@ -168,7 +168,7 @@ def test_device_tail_runs_the_backtrack(fixture, monkeypatch):
     eng = MappingEngine(index, options("sensitive")[1], device="cpu")
     assert not eng.device_tail and not eng._tail_auto
     monkeypatch.delenv("RAWHASH_TPU_NO_DEVICE_TAIL")
-    eng = MappingEngine(index, options("sensitive")[1], device="cpu")
+    eng = MappingEngine(index, options("sensitive")[1], device="cpu", trace=True)
     assert eng._tail_auto
     eng.map_batch(reads)
     assert not eng.device_tail and "backtrack" not in eng.profiler.totals
