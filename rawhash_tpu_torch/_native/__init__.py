@@ -18,6 +18,7 @@ import threading
 import numpy as np
 
 from .._build import BUILD_DIR
+from ..chain.regions import REGION_COLUMNS, Region
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _LIB = None
@@ -100,6 +101,18 @@ def _build_lib():
         ctypes.c_int32, ctypes.c_double, ctypes.c_int32, ctypes.c_int32,
         ctypes.c_int32,
         i64p,
+    ]
+    lib.rh_tail_decide_batch.restype = ctypes.c_int64
+    lib.rh_tail_decide_batch.argtypes = [
+        ctypes.c_int32, ctypes.c_int32, i32p, i32p, u8p, i32p,
+        ctypes.c_int32,
+        ctypes.c_double, ctypes.c_int32, ctypes.c_int32, ctypes.c_double,
+        ctypes.c_int32, ctypes.c_double, ctypes.c_int32, ctypes.c_int32,
+        ctypes.c_int32,
+        ctypes.c_int32, ctypes.c_int32,
+        ctypes.c_double, ctypes.c_double, ctypes.c_double, ctypes.c_double,
+        ctypes.c_int32,
+        i64p, i64p, i32p, i32p, i32p,
     ]
     return lib
 
@@ -222,6 +235,11 @@ def rmq_fill_native(
     return f[:n], p[:n]
 
 
+def _regions(rows: np.ndarray) -> list:
+    """Region objects of the native pipeline's rows (REGION_COLUMNS)."""
+    return [Region(**dict(zip(REGION_COLUMNS, r))) for r in rows.tolist()]
+
+
 def gen_regions_native(
     read_hash, u, bx, by,
     mask_level, mask_len, hard_mask_level, alt_diff_frac,
@@ -233,8 +251,6 @@ def gen_regions_native(
     lib = get_lib()
     if lib is None:
         return None
-    from ..chain.regions import Region
-
     n_u = int(u.shape[0])
     if n_u == 0:
         return []
@@ -251,18 +267,7 @@ def gen_regions_native(
         np.int32(check_strand), np.int32(min_strand_sc),
         out,
     )
-    rows = out[: n_keep * 20].reshape(n_keep, 20)
-    return [
-        Region(
-            id=int(r[0]), parent=int(r[1]), score=int(r[2]), score0=int(r[3]),
-            hash=int(r[4]), cnt=int(r[5]), as_=int(r[6]), rev=int(r[7]),
-            rid=int(r[8]), rs=int(r[9]), re=int(r[10]), qs=int(r[11]),
-            qe=int(r[12]), mlen=int(r[13]), blen=int(r[14]), n_sub=int(r[15]),
-            subsc=int(r[16]), inv=int(r[17]), is_alt=int(r[18]),
-            strand_retained=int(r[19]),
-        )
-        for r in rows
-    ]
+    return _regions(out[: n_keep * 20].reshape(n_keep, 20))
 
 
 def gen_regions_summ_native(
@@ -279,8 +284,6 @@ def gen_regions_summ_native(
     lib = get_lib()
     if lib is None:
         return None
-    from ..chain.regions import Region
-
     n_u = int(summ.shape[0])
     if n_u == 0:
         return []
@@ -295,15 +298,58 @@ def gen_regions_summ_native(
         np.int32(check_strand), np.int32(min_strand_sc),
         out,
     )
-    rows = out[: n_keep * 20].reshape(n_keep, 20)
-    return [
-        Region(
-            id=int(r[0]), parent=int(r[1]), score=int(r[2]), score0=int(r[3]),
-            hash=int(r[4]), cnt=int(r[5]), as_=int(r[6]), rev=int(r[7]),
-            rid=int(r[8]), rs=int(r[9]), re=int(r[10]), qs=int(r[11]),
-            qe=int(r[12]), mlen=int(r[13]), blen=int(r[14]), n_sub=int(r[15]),
-            subsc=int(r[16]), inv=int(r[17]), is_alt=int(r[18]),
-            strand_retained=int(r[19]),
-        )
-        for r in rows
-    ]
+    return _regions(out[: n_keep * 20].reshape(n_keep, 20))
+
+
+def tail_decide_batch(
+    summ, scal, active, slen, span,
+    mask_level, mask_len, hard_mask_level, alt_diff_frac,
+    all_chains, pri_ratio, best_n, check_strand, min_strand_sc,
+    min_chain_sc, min_mapq, w_bestq, w_bestmq, w_bestmc, w_threshold,
+    min_chain_sc2,
+):
+    """A device-tail chunk's decisions for a whole batch in one native call,
+    with the interpreter lock released: for every row that is active, has
+    signal (slen > 0) and was processed, the read hash, gen_regions_summ_
+    native's pipeline, chain.regions.set_mapq and MappingEngine._decide's
+    non-DTW branches, as the per-read route runs them.
+
+    summ: [B, K, 10] i32 chain summaries; scal: [B, 8] i32 scalars (n_u,
+    rep_len, n_ev, processed, ..., ev_offset, ...).  Returns (rows [N, 21]
+    i64: REGION_COLUMNS then mapq, ids [N] i32, off [B], n_regs [B] (-1:
+    row not decided), n_ids [B] (0: undecided)); a decided row's regions
+    are rows[off:off + n_regs] and its mapped ids ids[off:off + n_ids].
+    None without the native library."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    n_rows, k = summ.shape[:2]
+    summ = np.ascontiguousarray(summ, dtype=np.int32)
+    scal = np.ascontiguousarray(scal, dtype=np.int32)
+    if scal.shape != (n_rows, 8) or summ.shape[2:] != (10,):
+        raise ValueError(f"summaries {summ.shape} and scalars {scal.shape} "
+                         "do not match")
+    active = np.ascontiguousarray(active, dtype=np.bool_).view(np.uint8)
+    slen = np.ascontiguousarray(slen, dtype=np.int32)
+    if active.shape != (n_rows,) or slen.shape != (n_rows,):
+        raise ValueError("active and slen need one entry a row")
+    # room for every row's chains (a row keeps at most its n_u regions)
+    cap = max(int(np.minimum(scal[:, 0], k).clip(0).sum()), 1)
+    rows = np.empty((cap, len(REGION_COLUMNS) + 1), dtype=np.int64)
+    ids = np.empty(cap, dtype=np.int32)
+    off = np.empty(n_rows, dtype=np.int64)
+    n_regs = np.empty(n_rows, dtype=np.int32)
+    n_ids = np.empty(n_rows, dtype=np.int32)
+    n = lib.rh_tail_decide_batch(
+        np.int32(n_rows), np.int32(k), summ, scal, active, slen,
+        np.int32(span),
+        float(mask_level), np.int32(mask_len), np.int32(hard_mask_level),
+        float(alt_diff_frac),
+        np.int32(all_chains), float(pri_ratio), np.int32(best_n),
+        np.int32(check_strand), np.int32(min_strand_sc),
+        np.int32(min_chain_sc), np.int32(min_mapq),
+        float(w_bestq), float(w_bestmq), float(w_bestmc), float(w_threshold),
+        np.int32(min_chain_sc2),
+        rows, off, n_regs, ids, n_ids,
+    )
+    return rows[:n], ids[:n], off, n_regs, n_ids

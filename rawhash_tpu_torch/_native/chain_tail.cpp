@@ -13,6 +13,7 @@
 #include <cstdint>
 #include <cstring>
 #include <algorithm>
+#include <cmath>
 #include <vector>
 
 extern "C" {
@@ -332,7 +333,7 @@ static int32_t rh_region_pipeline(
     double alt_diff_frac,
     int32_t do_select, double pri_ratio, int32_t best_n,
     int32_t check_strand, int32_t min_strand_sc,
-    int64_t* out)
+    int64_t* out, int32_t stride)
 {
     const int32_t n_u = (int32_t)regs.size();
     // set_parent (mm_set_parent, hit.c:195-263)
@@ -443,7 +444,7 @@ static int32_t rh_region_pipeline(
             r.parent = new_of_old[old_parent];
         else if ((int64_t)keep.size() != (int64_t)n_u)
             r.parent = -1;
-        int64_t* o = out + 20 * i;
+        int64_t* o = out + (int64_t)stride * i;
         o[0] = r.id; o[1] = r.parent; o[2] = r.score; o[3] = r.score0;
         o[4] = (int64_t)r.hash; o[5] = r.cnt; o[6] = r.as_; o[7] = r.rev;
         o[8] = r.rid; o[9] = r.rs; o[10] = r.re; o[11] = r.qs; o[12] = r.qe;
@@ -543,7 +544,7 @@ extern "C" int32_t rh_gen_regions(
 
     return rh_region_pipeline(
         regs, mask_level, mask_len, hard_mask_level, alt_diff_frac,
-        do_select, pri_ratio, best_n, check_strand, min_strand_sc, out);
+        do_select, pri_ratio, best_n, check_strand, min_strand_sc, out, 20);
 }
 
 // Regions straight from the device tail's per-chain summaries
@@ -552,14 +553,14 @@ extern "C" int32_t rh_gen_regions(
 // lengths were already aggregated on-device, so this is gen_regs_from_
 // summaries + set_parent + select_sub fused (hit.c:10-367) without ever
 // touching per-anchor arrays.
-extern "C" int32_t rh_gen_regions_summ(
+static int32_t rh_summ_regions(
     uint32_t read_hash, int32_t n_u, int32_t span,
     const int32_t* summ,         // [n_u][10]
     double mask_level, int32_t mask_len, int32_t hard_mask_level,
     double alt_diff_frac,
     int32_t do_select, double pri_ratio, int32_t best_n,
     int32_t check_strand, int32_t min_strand_sc,
-    int64_t* out)
+    int64_t* out, int32_t stride)
 {
     if (n_u <= 0) return 0;
     std::vector<int64_t> starts(n_u);
@@ -615,7 +616,166 @@ extern "C" int32_t rh_gen_regions_summ(
     }
     return rh_region_pipeline(
         regs, mask_level, mask_len, hard_mask_level, alt_diff_frac,
-        do_select, pri_ratio, best_n, check_strand, min_strand_sc, out);
+        do_select, pri_ratio, best_n, check_strand, min_strand_sc, out,
+        stride);
+}
+
+extern "C" int32_t rh_gen_regions_summ(
+    uint32_t read_hash, int32_t n_u, int32_t span,
+    const int32_t* summ,         // [n_u][10]
+    double mask_level, int32_t mask_len, int32_t hard_mask_level,
+    double alt_diff_frac,
+    int32_t do_select, double pri_ratio, int32_t best_n,
+    int32_t check_strand, int32_t min_strand_sc,
+    int64_t* out)
+{
+    return rh_summ_regions(
+        read_hash, n_u, span, summ, mask_level, mask_len, hard_mask_level,
+        alt_diff_frac, do_select, pri_ratio, best_n, check_strand,
+        min_strand_sc, out, 20);
+}
+
+// ---------------------------------------------------------------------------
+// The device tail's host decisions for a whole chunk batch in one call, so
+// no Python runs per read and the caller's interpreter lock is released for
+// all of it.  For each row that is active, has signal and was processed it
+// runs what the engine's per-read route runs: the read hash (rmap.cpp:
+// 346-348), rh_gen_regions_summ, MAPQ (chain/regions.py::set_mapq, mm_set_
+// mapq, hit.c:502-539) and the decision's non-DTW branches (map/engine.py::
+// MappingEngine._decide, rmap.cpp:423-500), in the same double arithmetic.
+
+static inline uint32_t rh_wang_hash32(uint32_t key) {
+    // __ac_Wang_hash (khash.h)
+    key += ~(key << 15);
+    key ^= key >> 10;
+    key += key << 3;
+    key ^= key >> 6;
+    key += ~(key << 11);
+    key ^= key >> 16;
+    return key;
+}
+
+// Output row layout of the batch entry: the 20 columns above, then mapq.
+static const int32_t RH_DECIDED_COLS = 21;
+
+// mm_set_mapq on n region rows (not DTW)
+static void rh_set_mapq(int64_t* rows, int32_t n, int64_t min_chain_sc,
+                        int64_t rep_len)
+{
+    const double q_coef = 40.0;
+    int64_t sum_sc = 0;
+    for (int32_t i = 0; i < n; ++i) {
+        const int64_t* r = rows + (int64_t)RH_DECIDED_COLS * i;
+        if (r[1] == r[0]) sum_sc += r[2];  // primary: parent == id
+    }
+    const double uniq_ratio = (sum_sc + rep_len) > 0
+        ? (double)sum_sc / (double)(sum_sc + rep_len) : 0.0;
+    for (int32_t i = 0; i < n; ++i) {
+        int64_t* r = rows + (int64_t)RH_DECIDED_COLS * i;
+        const int64_t score = r[2], score0 = r[3], cnt = r[5];
+        const int64_t n_sub = r[15], subsc0 = r[16];
+        double pen_s1 = (score > 100 ? 1.0 : 0.01 * (double)score) * uniq_ratio;
+        double pen_cm = cnt > 10 ? 1.0 : 0.1 * (double)cnt;
+        if (!(pen_cm < pen_s1)) pen_cm = pen_s1;  // Python's min(pen_s1, pen_cm)
+        const int64_t subsc = std::max(subsc0, min_chain_sc);
+        const double x = score0 ? (double)subsc / (double)score0 : 0.0;
+        int64_t mapq = 0;
+        if (score > 0)
+            mapq = (int64_t)(pen_cm * q_coef * (1.0 - x) * std::log((double)score));
+        mapq -= (int64_t)(4.343 * std::log((double)(n_sub + 1)) + 0.499);
+        r[20] = std::min<int64_t>(std::max<int64_t>(mapq, 0), 60);
+    }
+}
+
+// MappingEngine._decide without DTW: writes the mapped ids, returns their
+// count (0: undecided)
+static int32_t rh_decide(const int64_t* rows, int32_t n, int32_t all_chains,
+                         int64_t min_mapq, double w_bestq, double w_bestmq,
+                         double w_bestmc, double w_threshold,
+                         int64_t min_chain_sc2, int32_t* ids)
+{
+    auto score = [&](int32_t i) { return rows[(int64_t)RH_DECIDED_COLS * i + 2]; };
+    auto mapq = [&](int32_t i) { return rows[(int64_t)RH_DECIDED_COLS * i + 20]; };
+    if (n == 1 && mapq(0) >= min_mapq) {
+        ids[0] = 0;
+        return 1;
+    }
+    const int32_t n_chains = (all_chains || n < 1) ? n : 1;
+    double mean_c = 0.0, mean_q = 0.0;
+    if (n > 0) {
+        int64_t sum_c = 0, sum_q = 0;
+        for (int32_t i = 0; i < n; ++i) { sum_c += score(i); sum_q += mapq(i); }
+        mean_c = (double)sum_c / (double)n;
+        mean_q = (double)sum_q / (double)n;
+    }
+    int32_t n_ids = 0;
+    for (int32_t ic = 0; ic < n_chains; ++ic) {
+        const double best_q = (double)mapq(ic), best_c = (double)score(ic);
+        double weighted = 0.0;
+        if (!all_chains) {
+            const double r_bestq = best_q > 0 ? std::min(best_q / 30.0, 1.0) : 0.0;
+            const double r_bestmq =
+                best_q > 0 ? std::max(1.0 - mean_q / best_q, 0.0) : 0.0;
+            const double r_bestmc =
+                best_c > 0 ? std::max(1.0 - mean_c / best_c, 0.0) : 0.0;
+            weighted = w_bestq * r_bestq + w_bestmq * r_bestmq +
+                       w_bestmc * r_bestmc;
+        }
+        if (weighted >= w_threshold ||
+            (all_chains && score(ic) >= min_chain_sc2))
+            ids[n_ids++] = ic;
+    }
+    return n_ids;
+}
+
+// Rows are decided where active[b] && slen[b] > 0 && scal[b][3] (processed).
+// A decided row's regions are n_regs[b] rows of RH_DECIDED_COLS at row
+// reg_off[b] of regs_out, and its mapped ids (indices into those regions)
+// the n_ids[b] entries at ids_out[reg_off[b]]; n_ids[b] == 0 means
+// undecided.  A row not decided gets n_regs[b] = -1.  regs_out and ids_out
+// hold at least the sum of the decided rows' scal[b][0] rows.  Returns the
+// number of region rows written.
+extern "C" int64_t rh_tail_decide_batch(
+    int32_t n_rows, int32_t k,
+    const int32_t* summ,         // [n_rows][k][10]
+    const int32_t* scal,         // [n_rows][8]: n_u, rep_len, ., processed,
+                                 // ., ev_offset, ., .
+    const uint8_t* active, const int32_t* slen,
+    int32_t span,
+    double mask_level, int32_t mask_len, int32_t hard_mask_level,
+    double alt_diff_frac,
+    int32_t all_chains, double pri_ratio, int32_t best_n,
+    int32_t check_strand, int32_t min_strand_sc,
+    int32_t min_chain_sc, int32_t min_mapq,
+    double w_bestq, double w_bestmq, double w_bestmc, double w_threshold,
+    int32_t min_chain_sc2,
+    int64_t* regs_out, int64_t* reg_off, int32_t* n_regs,
+    int32_t* ids_out, int32_t* n_ids)
+{
+    const uint32_t h11 = rh_wang_hash32(11);
+    int64_t w = 0;
+    for (int32_t b = 0; b < n_rows; ++b) {
+        const int32_t* sc = scal + 8 * b;
+        reg_off[b] = w;
+        n_ids[b] = 0;
+        if (!active[b] || slen[b] <= 0 || !sc[3]) {
+            n_regs[b] = -1;
+            continue;
+        }
+        const uint32_t h = rh_wang_hash32(rh_wang_hash32((uint32_t)sc[5]) + h11);
+        int64_t* rows = regs_out + (int64_t)RH_DECIDED_COLS * w;
+        const int32_t n = rh_summ_regions(
+            h, std::min(sc[0], k), span, summ + (int64_t)10 * k * b,
+            mask_level, mask_len, hard_mask_level, alt_diff_frac,
+            !all_chains, pri_ratio, best_n, check_strand, min_strand_sc,
+            rows, RH_DECIDED_COLS);
+        rh_set_mapq(rows, n, min_chain_sc, sc[1]);
+        n_regs[b] = n;
+        n_ids[b] = rh_decide(rows, n, all_chains, min_mapq, w_bestq, w_bestmq,
+                             w_bestmc, w_threshold, min_chain_sc2, ids_out + w);
+        w += n;
+    }
+    return w;
 }
 
 }  // extern "C"

@@ -12,6 +12,7 @@ tiny per read — a handful of chains — so this is deliberately scalar).
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import math
 
@@ -79,6 +80,33 @@ class Region:
     is_alt: int = 0
     strand_retained: int = 0
     alignment_score: float = 0.0
+
+
+# the Region fields the native region pipeline writes, one int64 column each
+# (_native/chain_tail.cpp), in its order
+REGION_COLUMNS = (
+    "id", "parent", "score", "score0", "hash", "cnt", "as_", "rev", "rid",
+    "rs", "re", "qs", "qe", "mlen", "blen", "n_sub", "subsc", "inv", "is_alt",
+    "strand_retained",
+)
+RegionRow = collections.namedtuple("RegionRow", REGION_COLUMNS + ("mapq",))
+
+
+class RegionRows:
+    """A read's regions as rows of the native batch decision's output
+    (REGION_COLUMNS, then mapq): a sequence of read-only RegionRow, so a
+    reader of Region lists reads these the same way."""
+
+    __slots__ = ("rows",)
+
+    def __init__(self, rows: np.ndarray):
+        self.rows = rows
+
+    def __len__(self) -> int:
+        return self.rows.shape[0]
+
+    def __getitem__(self, j: int) -> RegionRow:
+        return RegionRow._make(self.rows[j].tolist())
 
 
 def hash64_vec(key: np.ndarray) -> np.ndarray:
