@@ -93,15 +93,6 @@ def _build_lib():
         ctypes.c_int32,
         i64p,
     ]
-    lib.rh_gen_regions_summ.restype = ctypes.c_int32
-    lib.rh_gen_regions_summ.argtypes = [
-        ctypes.c_uint32, ctypes.c_int32, ctypes.c_int32,
-        i32p,
-        ctypes.c_double, ctypes.c_int32, ctypes.c_int32, ctypes.c_double,
-        ctypes.c_int32, ctypes.c_double, ctypes.c_int32, ctypes.c_int32,
-        ctypes.c_int32,
-        i64p,
-    ]
     lib.rh_tail_decide_batch.restype = ctypes.c_int64
     lib.rh_tail_decide_batch.argtypes = [
         ctypes.c_int32, ctypes.c_int32, i32p, i32p, u8p, i32p,
@@ -270,37 +261,6 @@ def gen_regions_native(
     return _regions(out[: n_keep * 20].reshape(n_keep, 20))
 
 
-def gen_regions_summ_native(
-    read_hash, summ, span,
-    mask_level, mask_len, hard_mask_level, alt_diff_frac,
-    do_select, pri_ratio, best_n, check_strand, min_strand_sc,
-):
-    """Native regions pipeline from the device tail's per-chain summary
-    rows ([n_u, 10] i32): gen_regs_from_summaries -> set_parent ->
-    [select_sub+sync], pruning BEFORE any Python Region object exists —
-    at 100 Mbp widths a chunk carries ~600k live chains and the Python
-    object construction alone cost seconds.  Returns a Region list or
-    None without the native toolchain."""
-    lib = get_lib()
-    if lib is None:
-        return None
-    n_u = int(summ.shape[0])
-    if n_u == 0:
-        return []
-    summ = np.ascontiguousarray(summ, dtype=np.int32)
-    out = np.zeros(n_u * 20, dtype=np.int64)
-    n_keep = lib.rh_gen_regions_summ(
-        ctypes.c_uint32(read_hash & 0xFFFFFFFF), np.int32(n_u),
-        np.int32(span), summ,
-        float(mask_level), np.int32(mask_len), np.int32(hard_mask_level),
-        float(alt_diff_frac),
-        np.int32(do_select), float(pri_ratio), np.int32(best_n),
-        np.int32(check_strand), np.int32(min_strand_sc),
-        out,
-    )
-    return _regions(out[: n_keep * 20].reshape(n_keep, 20))
-
-
 def tail_decide_batch(
     summ, scal, active, slen, span,
     mask_level, mask_len, hard_mask_level, alt_diff_frac,
@@ -310,19 +270,20 @@ def tail_decide_batch(
 ):
     """A device-tail chunk's decisions for a whole batch in one native call,
     with the interpreter lock released: for every row that is active, has
-    signal (slen > 0) and was processed, the read hash, gen_regions_summ_
-    native's pipeline, chain.regions.set_mapq and MappingEngine._decide's
-    non-DTW branches, as the per-read route runs them.
+    signal (slen > 0) and was processed, the read hash, the regions from
+    the row's chain summaries (chain.regions.gen_regs_from_summaries,
+    set_parent, select_sub), chain.regions.set_mapq and
+    MappingEngine._decide's non-DTW branches.
 
     summ: [B, K, 10] i32 chain summaries; scal: [B, 8] i32 scalars (n_u,
     rep_len, n_ev, processed, ..., ev_offset, ...).  Returns (rows [N, 21]
     i64: REGION_COLUMNS then mapq, ids [N] i32, off [B], n_regs [B] (-1:
     row not decided), n_ids [B] (0: undecided)); a decided row's regions
     are rows[off:off + n_regs] and its mapped ids ids[off:off + n_ids].
-    None without the native library."""
+    Raises without the native library."""
     lib = get_lib()
     if lib is None:
-        return None
+        raise RuntimeError("tail_decide_batch needs the native library")
     n_rows, k = summ.shape[:2]
     summ = np.ascontiguousarray(summ, dtype=np.int32)
     scal = np.ascontiguousarray(scal, dtype=np.int32)

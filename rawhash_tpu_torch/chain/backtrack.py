@@ -176,12 +176,6 @@ def chain_backtrack(
                q_span=q_span)
     dev = f.device
     if dev.type == "cpu":
-        # the kernel's candidate order is the full order cut at min_sc
-        z_f, z_idx, n_cand, _ = candidate_order(f, n_anchors, min_sc)
-        want = candidates_cut(f, n_anchors, min_sc, z_f.shape[1])
-        if not all(torch.equal(a, c) for a, c in zip((z_f, z_idx, n_cand), want)):
-            raise RuntimeError("chain_backtrack: the compacted candidate order "
-                               "differs from the full order cut at min_sc")
         return backtrack_plain(f, p, n_anchors, tpos, qpos, **prm)
     if dev.type != "cuda":
         raise ValueError(f"chain_backtrack: unsupported device {dev}")

@@ -30,8 +30,13 @@ from rawhash_tpu_torch.chain.backtrack import (  # noqa: E402
     compact_from_chain_stats, host_array, host_outputs, ptr,
 )
 from rawhash_tpu_torch.chain.device import chain_fill_batch  # noqa: E402
+from rawhash_tpu_torch.index.build import update_mid_occ  # noqa: E402
+from rawhash_tpu_torch.index.device import DeviceIndex  # noqa: E402
+from rawhash_tpu_torch.map.device_step import chunk_step  # noqa: E402
+from rawhash_tpu_torch.map.engine import fill_params  # noqa: E402
+from rawhash_tpu_torch.signal.events import NormCarry  # noqa: E402
 from rawhash_tpu_torch.synthetic import (  # noqa: E402
-    clustered_anchors, random_chains, sparse_anchors,
+    clustered_anchors, deployment, random_chains, sparse_anchors,
 )
 
 SPAN = 13
@@ -315,7 +320,39 @@ def test_kernel_rounds_match_plain(host_lib, name, depth):
         assert got[9].max() > 32768
 
 
+def chunk_order_case():
+    """f and n_anchors of a real chunk step: four sensitive reads of a
+    simulated genome through the step up to the fill, no anchors carried
+    in, row 2 without signal."""
+    index, mopt, reads = deployment(6000, "sensitive", 4, 500, 512, seed=3)
+    update_mid_occ(mopt, index)
+    io = index.opts
+    b, l_chunk = 4, 4000
+    sig = np.zeros((b, l_chunk), np.float32)
+    slen = np.zeros(b, np.int32)
+    for i, (_, s, _, _) in enumerate(reads):
+        slen[i] = 0 if i == 2 else min(l_chunk, s.shape[0])
+        sig[i, :slen[i]] = s[:slen[i]]
+    zeros = torch.zeros(b, dtype=torch.int32)
+    out = chunk_step(
+        DeviceIndex.from_host(index, "cpu"), T(sig), T(slen),
+        NormCarry.zeros(b, "cpu"), zeros, torch.zeros((b, 8), dtype=torch.int64),
+        torch.zeros((b, 8), dtype=torch.int32),
+        torch.zeros((b, 8), dtype=torch.int32), zeros,
+        diff=io.diff, w=io.w, e=io.e, q=io.q, k=io.k, fine_min=io.fine_min,
+        fine_max=io.fine_max, fine_range=io.fine_range,
+        window_length1=mopt.window_length1, window_length2=mopt.window_length2,
+        threshold1=mopt.threshold1, threshold2=mopt.threshold2,
+        peak_height=mopt.peak_height, e_cap=mopt.max_events_per_chunk,
+        a_cap=512, min_events=mopt.min_events, mid_occ=int(mopt.mid_occ),
+        **{k: v for k, v in fill_params(io, mopt).items() if k != "q_span"},
+    )
+    return out.f.numpy(), out.n_anchors.numpy().astype(np.int32)
+
+
 def order_case(name):
+    if name == "chunk":
+        return chunk_order_case()
     rng = np.random.default_rng(3)
     b, n = 4, 300
     f = rng.integers(-50, 60, (b, n)).astype(np.int32)
@@ -329,11 +366,14 @@ def order_case(name):
     return f, n_anchors
 
 
-@pytest.mark.parametrize("name", ["random", "ties", "none", "over"])
+@pytest.mark.parametrize("name", ["random", "ties", "none", "over", "chunk"])
 def test_candidate_order_is_the_full_order_cut(name):
     """candidate_order (compacted, then sorted) against candidates() cut at
-    min_sc: equal f values, pads, n_anchors = 0, no candidates at all."""
+    min_sc: equal f values, pads, n_anchors = 0, no candidates at all, and
+    the scores of a real chunk step."""
     f, n_anchors = order_case(name)
+    if name == "chunk":
+        assert (f >= PRM["min_sc"]).sum() > 0 and n_anchors.max() > 0
     z_f, z_idx, n_cand, a_max = candidate_order(T(f), T(n_anchors), PRM["min_sc"])
     want = candidates_cut(T(f), T(n_anchors), PRM["min_sc"], z_f.shape[1])
     for a, c in zip(want, (z_f, z_idx, n_cand)):

@@ -49,6 +49,9 @@ REPLACED = {
     "parallel/dist.py::_build_dist_step": ("parallel/dist.py::DistContext.step", None),
     "parallel/dist.py::_build_dist_step_tail": ("parallel/dist.py::DistContext.step_tail",
                                                 None),
+    # the per-read regions from summaries: the device tail's batch decision
+    "_native/__init__.py::gen_regions_summ_native": ("_native/__init__.py::tail_decide_batch",
+                                                     None),
 }
 
 JIT = "jax 0.9.0's jit fast path: an AOT-compile memo and its compile log"

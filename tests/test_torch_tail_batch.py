@@ -1,10 +1,12 @@
 """The device tail's batch decision: one native call a chunk
 (_native.tail_decide_batch, rh_tail_decide_batch in chain_tail.cpp) held
-field for field against the per-read route it replaces
-(gen_regions_summ_native, set_mapq, MappingEngine._decide) on seeded
-random chain summaries, and the engine's records on the forced device tail
-equal to the per-read route's at depths 1 and 3, with and without the
-native library."""
+field for field against the plain pipeline in numpy and Python
+(gen_regs_from_summaries, set_parent, select_sub, set_mapq,
+MappingEngine._decide) on seeded random chain summaries; the engine's
+records on the forced device tail equal to the host tail's, which decides
+each read in Python, at depths 1 and 3; and without the native library the
+engine keeps the host tail, even when the device tail is forced, with the
+same records."""
 
 import types
 
@@ -15,11 +17,10 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)  # small tensors; xdist workers share the cores
 
 from rawhash_tpu_torch import _native  # noqa: E402
-from rawhash_tpu_torch._native import (  # noqa: E402
-    gen_regions_summ_native, get_lib, tail_decide_batch,
-)
+from rawhash_tpu_torch._native import get_lib, tail_decide_batch  # noqa: E402
 from rawhash_tpu_torch.chain.regions import (  # noqa: E402
-    REGION_COLUMNS, Region, set_mapq, wang_hash32,
+    REGION_COLUMNS, Region, gen_regs_from_summaries, select_sub, set_mapq,
+    set_parent, wang_hash32,
 )
 from rawhash_tpu_torch.config import MapFlag, apply_depletion  # noqa: E402
 from rawhash_tpu_torch.index.build import build_index_from_signals  # noqa: E402
@@ -114,8 +115,8 @@ def _batch(rng, mo, b=64, k=10):
     return summ, scal, active, slen
 
 
-def _per_read(mo, summ, scal, active, slen):
-    """The per-read route on the same rows: {row: (regions, ids, done)}."""
+def _plain(mo, summ, scal, active, slen):
+    """The plain pipeline on the same rows: {row: (regions, ids, done)}."""
     all_chains = bool(mo.flag & MapFlag.ALL_CHAINS)
     par, sel = eng_mod._tail_params(mo)
     stub = types.SimpleNamespace(mopt=mo)
@@ -124,8 +125,10 @@ def _per_read(mo, summ, scal, active, slen):
         if not active[i] or slen[i] == 0 or not scal[i, 3]:
             continue
         h = wang_hash32((wang_hash32(int(scal[i, 5])) + wang_hash32(11)) & 0xFFFFFFFF)
-        regs = gen_regions_summ_native(h, summ[i, :scal[i, 0]], SPAN, *par,
-                                       not all_chains, *sel)
+        regs = gen_regs_from_summaries(h, summ[i, :scal[i, 0]], SPAN)
+        set_parent(regs, *par)
+        if not all_chains:
+            regs = select_sub(regs, *sel)
         set_mapq(regs, mo.min_chaining_score, int(scal[i, 1]), False)
         ids, done = MappingEngine._decide(stub, regs, False)
         out[i] = (regs, ids, done)
@@ -135,7 +138,7 @@ def _per_read(mo, summ, scal, active, slen):
 @pytest.mark.skipif(get_lib() is None, reason="no native toolchain")
 @pytest.mark.parametrize("seed", [0, 1, 2])
 @pytest.mark.parametrize("preset", ["sensitive", "depletion", "ava-viral"])
-def test_batch_decision_matches_the_per_read_route(preset, seed):
+def test_batch_decision_matches_the_plain_pipeline(preset, seed):
     mo = _mopt(preset)
     rng = np.random.default_rng(seed)
     summ, scal, active, slen = _batch(rng, mo)
@@ -147,7 +150,7 @@ def test_batch_decision_matches_the_per_read_route(preset, seed):
         mo.w_bestmc, mo.w_threshold, mo.min_chaining_score2,
     )
     np.testing.assert_array_equal(active, before)  # the call writes no input
-    want = _per_read(mo, summ, scal, active, slen)
+    want = _plain(mo, summ, scal, active, slen)
     assert sorted(want) == list(np.nonzero(n_regs >= 0)[0])
     assert {5, 6, 7, 8}.isdisjoint(want)
     for i, (regs, w_ids, done) in want.items():
@@ -196,48 +199,55 @@ def workloads():
 
 
 def _map(workloads, preset, depth):
+    """A run's records and stats, and whether it took the device tail."""
     index, batches = workloads[preset]
     mo = options(preset)[1]
     mo.max_anchors_per_read = 512 if preset == "ava-viral" else 4096
     mo.pipeline_depth = depth
     eng = MappingEngine(index, mo, device="cpu")
-    assert eng.device_tail
-    return _records([r for rs in eng.map_stream(iter(batches)) for r in rs]), eng.stats
+    recs = _records([r for rs in eng.map_stream(iter(batches)) for r in rs])
+    return recs, eng.stats, eng.device_tail
 
 
 @pytest.mark.parametrize("preset,depth", [("sensitive", 1), ("sensitive", 3),
                                           ("ava-viral", 3)])
 def test_engine_records_equal_the_per_read_route(workloads, monkeypatch, preset,
                                                  depth):
-    """On the forced device tail the batch decision gives the per-read
-    route's records, and decides every row itself (all-vs-all at depth 3
-    only: its plain backtrack is slow on the CPU)."""
-    monkeypatch.setenv("RAWHASH_TPU_DEVICE_TAIL", "1")
-    monkeypatch.delenv("RAWHASH_TPU_NO_DEVICE_TAIL", raising=False)
+    """The forced device tail's records equal the host tail's on the same
+    batches; the host tail is the per-read route, deciding each read in
+    Python (set_mapq, MappingEngine._decide), so this holds the native
+    decision against the Python one through the engine (all-vs-all at
+    depth 3 only: the device tail's plain backtrack is slow on the CPU)."""
     if get_lib() is None:
         pytest.skip("no native toolchain")
-    got, stats = _map(workloads, preset, depth)
-    assert stats["tail_native_rows"] > 0 and stats["tail_python_rows"] == 0
-    monkeypatch.setattr(eng_mod, "tail_decide_batch", lambda *a: None)
-    want, ref = _map(workloads, preset, depth)
-    assert ref["tail_native_rows"] == 0
-    assert ref["tail_python_rows"] == stats["tail_native_rows"]
+    monkeypatch.delenv("RAWHASH_TPU_NO_DEVICE_TAIL", raising=False)
+    monkeypatch.setenv("RAWHASH_TPU_DEVICE_TAIL", "1")
+    got, stats, device_tail = _map(workloads, preset, depth)
+    assert device_tail and stats["tail_chunks"] > 0
+    monkeypatch.delenv("RAWHASH_TPU_DEVICE_TAIL")
+    monkeypatch.setenv("RAWHASH_TPU_NO_DEVICE_TAIL", "1")
+    want, ref, device_tail = _map(workloads, preset, depth)
+    assert not device_tail and ref["tail_chunks"] == 0
     assert got == want
     assert sum(m[8] for _, recs in got for m in recs) >= 3
 
 
 @pytest.mark.parametrize("depth", [1, 3])
-def test_engine_records_without_the_native_library(workloads, monkeypatch, depth):
-    """With no native library the per-read route's numpy path decides every
-    row, and the records are the batch decision's."""
+def test_engine_records_without_the_native_library(workloads, monkeypatch,
+                                                   capsys, depth):
+    """With no native library the engine refuses the device tail, even
+    forced, and says so; its host tail (numpy throughout) gives the device
+    tail's records."""
     monkeypatch.setenv("RAWHASH_TPU_DEVICE_TAIL", "1")
     monkeypatch.delenv("RAWHASH_TPU_NO_DEVICE_TAIL", raising=False)
     with_lib = None
     if get_lib() is not None:
         with_lib = _map(workloads, "sensitive", depth)
+        assert with_lib[2] and with_lib[1]["tail_chunks"] > 0
     monkeypatch.setattr(_native, "get_lib", lambda: None)
-    got, stats = _map(workloads, "sensitive", depth)
-    assert stats["tail_native_rows"] == 0 and stats["tail_python_rows"] > 0
+    capsys.readouterr()
+    got, stats, device_tail = _map(workloads, "sensitive", depth)
+    assert not device_tail and stats["tail_chunks"] == 0
+    assert "RAWHASH_TPU_DEVICE_TAIL not applied" in capsys.readouterr().err
     if with_lib is not None:
         assert got == with_lib[0]
-        assert stats["tail_python_rows"] == with_lib[1]["tail_native_rows"]
