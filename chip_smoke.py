@@ -22,11 +22,15 @@ Phases, each printed as one JSON line and each fatal on failure:
                claim steps, serial_steps_max) and the bound from it; at
                256 x 16384 the kernel at each staging depth, checked and
                timed in turns
-  4. event_kernels the events and sketch kernels (the peak detector
+  4. event_kernels the events stage's three kernels (events_fused,
+               csrc/events_fused.cu, the engine's path) held bit for bit
+               against the stage's op chain on the card and timed beside it
+               and their bound; the single kernels (the peak detector
                csrc/events_peaks.cu, the ordered prefix sums and sums
                csrc/ordered_scan.cu, the diff filter csrc/diff_filter.cu)
-               on the inputs one events+sketch call on the card gives them,
-               256 reads at the viral and sensitive (4000 samples, 768
+               on the inputs one events+sketch call of the op chain on the
+               card gives them (the engine launches only the diff filter of
+               these), 256 reads at the viral and sensitive (4000 samples, 768
                events) and ava (28672, 16384) shapes: each call (the sum of
                the signal and its square, the prefix sums of the clipped
                signal and its square, the prefix sum of the kept values,
@@ -771,6 +775,8 @@ def phase_fill_warps(torch, dev, fills) -> list:
 # JAX package (a lax.scan, or jnp.cumsum / jnp.sum in XLA's CPU order,
 # inside its jitted events and sketch programs)
 EVENT_KERNEL_ROWS = (
+    ("events_fused", "rawhash_tpu_torch/csrc/events_fused.cu",
+     "rawhash_tpu/signal/events.py:287"),
     ("gen_peaks", "rawhash_tpu_torch/csrc/events_peaks.cu", "rawhash_tpu/signal/events.py:145"),
     ("ordered_cumsum", "rawhash_tpu_torch/csrc/ordered_scan.cu",
      "rawhash_tpu/signal/events.py:319"),
@@ -786,13 +792,24 @@ EVENT_SHAPES = {"viral": ("viral", 4000, 768), "sensitive": ("sensitive", 4000, 
 
 
 def event_kernels():
-    """The events and sketch stage's kernel wrappers by name (each with its
-    `launches` counter)."""
+    """The events and sketch stage's single kernel wrappers by name (each
+    with its `launches` counter): the events stage's op chain's (the peak
+    detector and the ordered sums, which run on the card only where the op
+    chain is called, detect_events_batch_plain) and the diff filter."""
     from rawhash_tpu_torch.signal import events as ev
     from rawhash_tpu_torch.sketch import device as sk
 
     return {"gen_peaks": ev._gen_peaks, "ordered_cumsum": ev.ordered_cumsum,
             "ordered_sum": ev.ordered_sum, "diff_filter": sk._diff_filter}
+
+
+def main_path_event_kernels():
+    """The kernels the engine's events and sketch stage launches, by name:
+    the events stage's three (events_fused) and the diff filter."""
+    from rawhash_tpu_torch.signal import events as ev
+    from rawhash_tpu_torch.sketch import device as sk
+
+    return {"events_fused": ev.events_fused, "diff_filter": sk._diff_filter}
 
 
 def stage_inputs(torch, dev, b, l, seed) -> tuple:
@@ -849,11 +866,57 @@ def stage_ops(torch, dev, l) -> tuple:
     return count.n, sum("synchroniz" in str(w.message) for w in caught)
 
 
+def fused_stage_row(torch, sig, slen, preset, e_cap, stage, lat) -> dict:
+    """The events stage's three kernels (events_fused) on one chunk, held
+    bit for bit against the op chain's outputs `stage` (events, n_ev, the
+    carry), with no sync, and timed three ways beside their bound; the op
+    chain on the card (detect_events_batch_plain) timed once beside them
+    (plain_ms)."""
+    from rawhash_tpu_torch.profiling import bounds
+    from rawhash_tpu_torch.profiling.kernel_time import call_ms, device_ms, host_ms
+    from rawhash_tpu_torch.signal import events as ev
+    from rawhash_tpu_torch.synthetic import options
+
+    _, mo = options(preset)
+    b, l = sig.shape
+    carry = ev.NormCarry.zeros(b, sig.device)
+    prm = dict(window_length1=mo.window_length1, window_length2=mo.window_length2,
+               threshold1=mo.threshold1, threshold2=mo.threshold2,
+               peak_height=mo.peak_height, e_cap=e_cap)
+    sig16 = sig.half()  # the engine's samples (stage_inputs rounds them to f16)
+    call = lambda: ev.events_fused(sig16, slen, carry, **prm)  # noqa: E731
+    before = ev.events_fused.launches, ev.events_fused.wide_calls
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")  # a sync raises
+    try:
+        events, n_ev, new_carry = call()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check(ev.events_fused.launches == before[0] + 3, "event_kernels: events_fused did not "
+          "launch its three kernels")
+    wide = ev.events_fused.wide_calls - before[1]
+    err = float((events - stage[0]).abs().max())
+    for name, g, w in zip(("events", "n_ev", "sum", "sum_sq", "n"),
+                          (events, n_ev, *new_carry), (stage[0], stage[1], *stage[2])):
+        check(torch.equal(g, w), f"event_kernels {preset} {b}x{l}: events_fused's {name} "
+              f"disagrees with the stage's op chain (events' max abs err {err})")
+    _, plain_ms = timed_once(torch, lambda: ev.detect_events_batch_plain(sig16, slen, carry,
+                                                                         **prm))
+    n_live = int(slen.clamp(0, l).max())
+    return dict(kernel="events_fused", shape=[b, l], e_cap=e_cap, wide=wide,
+                max_abs_err=err, ms=device_ms(call, 10), call_ms=call_ms(call),
+                host_ms=host_ms(call, 10), plain_ms=plain_ms, library_ms=None,
+                **bounds.events_stage_bound(b, l, e_cap, n_live, 2, lat))
+
+
 def phase_event_kernels(torch, dev) -> dict:
     """The events and sketch kernels at the main path's shapes (EVENT_SHAPES,
-    256 reads of nanopore-like signal): each kernel's inputs are caught from
-    one events+sketch call on the card, then each kernel is held against its
-    plain version on the card on the same inputs, bit for bit (the peak
+    256 reads of nanopore-like signal): the events stage's three kernels
+    (events_fused) held against the stage's op chain on the card, bit for
+    bit, and timed (fused_stage_row); each single kernel's inputs are
+    caught from that op chain's events+sketch call, then each kernel is
+    held against its plain version on the card on the same inputs, bit for
+    bit (the peak
     detector, the diff filter and all three ordered sums of the chunk), with
     no sync in the kernel routes; each call timed three ways
     (profiling/kernel_time.py: device time, 20 launches in a CUDA graph
@@ -890,6 +953,8 @@ def phase_event_kernels(torch, dev) -> dict:
         "ordered_sum": lambda x, squares=False: tuple(
             torch.sum(v, dim=1) for v in ((x, x * x) if squares else (x,)))}
     out = {"latencies": lat, "shapes": {}}
+    counted = {**event_kernels(), **main_path_event_kernels()}
+    launches0 = {name: fn.launches for name, fn in counted.items()}
     for shape, (preset, l, e_cap) in EVENT_SHAPES.items():
         b = 256
         calls = []
@@ -900,12 +965,17 @@ def phase_event_kernels(torch, dev) -> dict:
             lambda attr, _, a, k: calls.append((names[attr], a, k)))
             for fn in wrappers.values()}
         sig, slen = stage_inputs(torch, dev, b, l, 3)
+        # the stage's op chain on the card (the kernels' inputs caught from
+        # it), then the stage as its three kernels, which equal it bit for bit
+        takes_kernels = ev.takes_kernels
+        ev.takes_kernels = lambda sig: False
         try:
             stage = events_stage(sig, slen, preset, e_cap)
         finally:
+            ev.takes_kernels = takes_kernels
             put_back(originals)
         n_ev = stage[1]
-        rows = []
+        rows = [fused_stage_row(torch, sig, slen, preset, e_cap, stage, lat)]
         for name, a, k in calls:
             fn = wrappers[name]
             before = fn.launches
@@ -964,7 +1034,8 @@ def phase_event_kernels(torch, dev) -> dict:
                                                                       n_live, lat))
             rows.append(row)
         check(sorted(r["kernel"] for r in rows) == sorted(
-            ["gen_peaks", "diff_filter"] + ["ordered_cumsum"] * 2 + ["ordered_sum"]),
+            ["events_fused", "gen_peaks", "diff_filter"] + ["ordered_cumsum"] * 2
+            + ["ordered_sum"]),
             f"event_kernels {shape}: unexpected calls {[r['kernel'] for r in rows]}")
         line = dict(shape=shape, preset=preset, b=b, l=l, e_cap=e_cap,
                     mean_events=float(n_ev.float().mean()), calls=rows,
@@ -977,6 +1048,9 @@ def phase_event_kernels(torch, dev) -> dict:
     out["stage_ops"] = {"4000": ops4, "8000": ops8, "syncs_4000": syncs4,
                         "syncs_8000": syncs8}
     emit({"phase": "event_stage_ops", **out["stage_ops"]})
+    # the kernels' launches in this phase (the single ones of the op chain
+    # launch nowhere else)
+    out["launches"] = {name: fn.launches - launches0[name] for name, fn in counted.items()}
     check(ops4 == ops8, f"event_kernels: the events and sketch stage dispatched {ops4} "
           f"torch ops at L = 4000 and {ops8} at L = 8000")
     check(syncs4 == syncs8 == 0, f"event_kernels: the events and sketch stage waited "
@@ -1909,7 +1983,7 @@ def main(argv=None) -> int:
             emit({"phase": f"{name}_done", "seconds": time.perf_counter() - t0})
 
         counters = {"chain_fill": chain_fill, "chain_backtrack": chain_backtrack,
-                    **event_kernels(), "dtw_banded_batch": dtw_banded_batch}
+                    **main_path_event_kernels(), "dtw_banded_batch": dtw_banded_batch}
         runs = {}
         runs["fixture"] = main_path(
             "fixture", lambda: phase_fixture(fixture_dir, host), counters)
@@ -2068,9 +2142,11 @@ def main(argv=None) -> int:
             "bound_ms": k4_row["bound_ms"], "bound_by": bound_by(k4_row),
             "library_ms": None,
         })
-        # the events and sketch kernels (the JAX package's scans and ordered
-        # sums, not Pallas kernels): the row at the viral chunk's first call,
-        # the same at the sensitive and ava shapes beside it
+        # the events and sketch kernels (the JAX package's events program,
+        # scans and ordered sums, not Pallas kernels): the row at the viral
+        # chunk's first call, the same at the sensitive and ava shapes beside
+        # it; launches on the main path for the kernels the engine launches,
+        # in the event_kernels phase for the op chain's single kernels
         shapes = timed["event_kernels"]["shapes"]
         for name, source, replaces in EVENT_KERNEL_ROWS:
             calls = {c: [r for r in line["calls"] if r["kernel"] == name]
@@ -2081,9 +2157,11 @@ def main(argv=None) -> int:
             # PyTorch calls that give the same outputs; the single function
             # (x alone, one PyTorch call) stands beside it under `single`
             scan = "single" in row
+            on_path = name in launches
             kernels.append({
                 "name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": launches[name],
+                "launches": (launches if on_path else timed["event_kernels"]["launches"])[name],
+                "launches_in": "main_path" if on_path else "event_kernels",
                 "max_abs_err": max(r["max_abs_err"] for c in calls.values() for r in c),
                 "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": "bytes" if scan else bound_by(row),
@@ -2095,7 +2173,8 @@ def main(argv=None) -> int:
                     "single": row["single"]} if scan else {}),
                 "as_called": {c: [{k: r[k] for k in ("options", "shape", "ms", "call_ms",
                                                      "host_ms", "bound_ms", "library_ms",
-                                                     "library_call_ms", "single") if k in r}
+                                                     "library_call_ms", "single", "plain_ms",
+                                                     "wide", "staged_bytes") if k in r}
                                   for r in rs] for c, rs in calls.items()},
                 **{c: {k: calls[c][0][k] for k in ("shape", "ms", "bound_ms", "library_ms")}
                    for c in ("sensitive", "ava")},

@@ -41,9 +41,11 @@
 
 #ifdef __CUDACC__
 #define RH_SC_HD __host__ __device__ __forceinline__
+#define RH_SC_TEAM __device__ __forceinline__
 #define RH_SC_UNROLL _Pragma("unroll")
 #else
 #define RH_SC_HD static inline
+#define RH_SC_TEAM static inline
 #define RH_SC_UNROLL
 #endif
 
@@ -76,31 +78,39 @@ RH_SC_HD int rh_cumsum_levels(int n, int* sizes) {
 // (Each function below loads its values before it adds them, so that the
 // loads do not wait on the adds; the adds keep their order.)
 
-// The total of block k of src (n values, zero past them).
-RH_SC_HD float rh_cumsum_block_total(const float* src, int n, int k) {
+// The total of block k of src (n values, zero past them), or (sq) of
+// their squares.
+RH_SC_HD float rh_cumsum_block_total(const float* src, int n, int k,
+                                     bool sq = false) {
   const int a = k * RH_SCAN_BLOCK;
   float v[RH_SCAN_BLOCK];
   RH_SC_UNROLL
   for (int r = 0; r < RH_SCAN_BLOCK; ++r) v[r] = a + r < n ? src[a + r] : 0.0f;
   float acc = 0.0f;
   RH_SC_UNROLL
-  for (int r = 0; r < RH_SCAN_BLOCK; ++r) acc = acc + v[r];
+  for (int r = 0; r < RH_SCAN_BLOCK; ++r) acc = acc + (sq ? v[r] * v[r] : v[r]);
   return acc;
 }
 
 // Block k's running sums plus carry, the prefix of the blocks before it,
-// into dst (may be src), up to n.
+// into dst (may be src), up to n; unless dst_sq is null, its squares'
+// running sums plus carry_sq into dst_sq.
 RH_SC_HD void rh_cumsum_block_out(const float* src, int n, int k, float carry,
-                                  float* dst) {
+                                  float* dst, float carry_sq = 0.0f,
+                                  float* dst_sq = nullptr) {
   const int a = k * RH_SCAN_BLOCK;
   float v[RH_SCAN_BLOCK];
   RH_SC_UNROLL
   for (int r = 0; r < RH_SCAN_BLOCK; ++r) v[r] = a + r < n ? src[a + r] : 0.0f;
-  float acc = 0.0f;
+  float acc = 0.0f, s = 0.0f;
   RH_SC_UNROLL
   for (int r = 0; r < RH_SCAN_BLOCK; ++r) {
     acc = acc + v[r];
     if (a + r < n) dst[a + r] = acc + carry;
+    if (dst_sq) {
+      s = s + v[r] * v[r];
+      if (a + r < n) dst_sq[a + r] = s + carry_sq;
+    }
   }
 }
 
@@ -131,8 +141,10 @@ RH_SC_HD int rh_sum_levels(int n, int* sizes, int* fronts) {
   return j;
 }
 
-// Window k of src (n values after `front` zeros, zeros past them).
-RH_SC_HD float rh_sum_window(const float* src, int n, int front, int k) {
+// Window k of src (n values after `front` zeros, zeros past them), or (sq)
+// of their squares.
+RH_SC_HD float rh_sum_window(const float* src, int n, int front, int k,
+                             bool sq = false) {
   const int a = k * RH_SUM_WINDOW - front;
   float v[RH_SUM_WINDOW];
   RH_SC_UNROLL
@@ -140,7 +152,7 @@ RH_SC_HD float rh_sum_window(const float* src, int n, int front, int k) {
     v[r] = a + r >= 0 && a + r < n ? src[a + r] : 0.0f;
   float acc = 0.0f;
   RH_SC_UNROLL
-  for (int r = 0; r < RH_SUM_WINDOW; ++r) acc = acc + v[r];
+  for (int r = 0; r < RH_SUM_WINDOW; ++r) acc = acc + (sq ? v[r] * v[r] : v[r]);
   return acc;
 }
 
@@ -283,4 +295,64 @@ RH_SC_HD int rh_scan_plan(int n, bool prefix, bool sq, RhScanPlan* p) {
   p->row_floats = fixed + p->g * p->res * tile;
   p->smem = 4 * p->rows * p->row_floats;
   return p->smem <= RH_SCAN_SMEM_MAX;
+}
+
+// ---- the levels above the row by a team --------------------------------------
+//
+// A team is the threads that work one row together: tm.each(f) runs
+// f(t, nt) on each of its nt members (t = 0 .. nt - 1), then waits for all
+// of them (a CUDA block and __syncthreads; on the host, a loop).  The levels
+// sit as the plan places them (level j at P.offs[j], each value at
+// rh_lev_at), level 1 filled by the caller from the row.
+
+// The sum's levels 2 .. top of L and (unless null) L2; the top level's sum
+// is rh_sum_top(L + P.offs[P.top], P.sizes[P.top], false).
+template <class Team>
+RH_SC_TEAM void rh_sum_levels_team(Team& tm, float* L, float* L2,
+                                   const RhScanPlan& P) {
+  for (int j = 1; j < P.top; ++j)
+    tm.each([&](int t, int nt) {
+      for (int k = t; k < P.sizes[j + 1]; k += nt) {
+        const int at =
+            P.offs[j + 1] + rh_lev_at(k, RH_SUM_WINDOW, P.fronts[j + 1]);
+        L[at] = rh_sum_window(L + P.offs[j] + k, P.sizes[j], P.fronts[j], k);
+        if (L2)
+          L2[at] = rh_sum_window(L2 + P.offs[j] + k, P.sizes[j], P.fronts[j], k);
+      }
+    });
+}
+
+// The prefix sum's levels of L and (unless null) L2 (P.top >= 1): the
+// up-sweep, the top's scan, the down-sweep; level 1 then holds the
+// inclusive prefix of the row's block totals.
+template <class Team>
+RH_SC_TEAM void rh_prefix_levels_team(Team& tm, float* L, float* L2,
+                                      const RhScanPlan& P) {
+  const int top = P.top;
+  for (int j = 1; j < top; ++j)
+    tm.each([&](int t, int nt) {
+      for (int k = t; k < P.sizes[j + 1]; k += nt) {
+        const int at = P.offs[j + 1] + rh_lev_at(k, RH_SCAN_BLOCK, 0);
+        L[at] = rh_cumsum_block_total(L + P.offs[j] + k, P.sizes[j], k);
+        if (L2)
+          L2[at] = rh_cumsum_block_total(L2 + P.offs[j] + k, P.sizes[j], k);
+      }
+    });
+  tm.each([&](int t, int nt) {
+    if (t == 0) rh_cumsum_top(L + P.offs[top], P.sizes[top], L + P.offs[top]);
+    if (L2 && t == nt - 1)
+      rh_cumsum_top(L2 + P.offs[top], P.sizes[top], L2 + P.offs[top]);
+  });
+  for (int j = top - 1; j >= 1; --j)
+    tm.each([&](int t, int nt) {
+      for (int k = t; k < P.sizes[j + 1]; k += nt) {
+        const int pre = P.offs[j + 1] + rh_lev_at(k - 1, RH_SCAN_BLOCK, 0);
+        float* blk = L + P.offs[j] + k;
+        rh_cumsum_block_out(blk, P.sizes[j], k, k ? L[pre] : 0.0f, blk);
+        if (L2) {
+          float* blk2 = L2 + P.offs[j] + k;
+          rh_cumsum_block_out(blk2, P.sizes[j], k, k ? L2[pre] : 0.0f, blk2);
+        }
+      }
+    });
 }

@@ -100,7 +100,8 @@ def events_and_sketch(
     diff, w, e, q, k, fine_min, fine_max, fine_range,
     stages: _Stages | None = None,
 ):
-    """Event detection (revent.c:257) then sketching (rsketch.c:271)."""
+    """Event detection (revent.c:257; sig f16 or f32, widened to f32 as
+    the events stage reads it) then sketching (rsketch.c:271)."""
     events, n_ev, carry2 = detect_events_batch(
         sig, slen, carry,
         window_length1=window_length1, window_length2=window_length2,
@@ -247,7 +248,6 @@ def chunk_step(
     didx, which it does not read): the sharded seed merge."""
     stages = None if prof is None else _Stages(prof, sig.device, STEP_STAGES)
     span = k + e - 1
-    sig = sig.to(torch.float32)  # signal may arrive as f16
 
     events, n_ev, carry2, processed, hashes, qpos_seed, seed_valid = (
         events_and_sketch(

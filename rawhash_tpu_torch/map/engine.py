@@ -71,7 +71,7 @@ from ..config import MapFlag, MapOptions
 from ..dtw.evaluate import evaluate_chains_batched
 from ..index.build import RawIndex, update_mid_occ
 from ..index.device import DeviceIndex
-from ..signal.events import NormCarry
+from ..signal.events import NormCarry, events_fused
 from ..utils.timers import NO_SPAN, TRANSFER, WAIT, StageProfiler
 from .device_step import chunk_step, tail_finish
 
@@ -203,9 +203,13 @@ class MappingEngine:
             ranks[order] = np.arange(index.n_seq, dtype=np.int32)
             self._target_rank = torch.from_numpy(ranks).to(self.device)
             self._sorted_names = [index.seq_names[i] for i in order]
+        # events_fused_steps: chunk steps whose events stage ran as the
+        # kernels (on the card), events_fused_wide_steps those of them that
+        # staged a row in global memory (rows too wide for shared memory)
         self.stats = {"hit_overflow": 0, "prev_overflow": 0, "reads": 0,
                       "mapped": 0, "anchor_regrows": 0, "chain_overflow": 0,
-                      "tail_chunks": 0}
+                      "tail_chunks": 0, "events_fused_steps": 0,
+                      "events_fused_wide_steps": 0}
         self._occ_cache = None
         # observed per-chunk anchor watermark (p95 of hits + overflow);
         # once set it sizes the next batches' a_cap instead of the model
@@ -665,7 +669,8 @@ def _step(engine: MappingEngine, st: _BatchState, inputs, a_cap: int, q_rank):
     mo, io = engine.mopt, engine.iopt
     step = (functools.partial(chunk_step, engine.didx) if engine.dist is None
             else engine.dist.step)
-    return step(
+    calls, wide = events_fused.calls, events_fused.wide_calls
+    out = step(
         *inputs, q_rank, engine._target_rank,
         diff=io.diff, w=io.w, e=io.e, q=io.q, k=io.k,
         fine_min=io.fine_min, fine_max=io.fine_max, fine_range=io.fine_range,
@@ -677,6 +682,11 @@ def _step(engine: MappingEngine, st: _BatchState, inputs, a_cap: int, q_rank):
         **{k: v for k, v in engine.fill_params.items() if k != "q_span"},
         all_vs_all=bool(mo.flag & MapFlag.ALL_CHAINS), prof=_stage_spans(engine, st),
     )
+    # what the events stage recorded of the step: whether it ran as the
+    # kernels, and whether they staged a row in global memory
+    _count(engine, events_fused_steps=int(events_fused.calls > calls),
+           events_fused_wide_steps=int(events_fused.wide_calls > wide))
+    return out
 
 
 def _to_host(engine: MappingEngine, st: _BatchState, out, width: int):

@@ -272,6 +272,23 @@ def peaks_bound(b: int, l: int, n_live: int, lat: dict | None = None) -> dict:
                  n_live * chain_cycles(PEAKS_CHAIN, lat))
 
 
+def events_stage_bound(b: int, l: int, e_cap: int, n_live: int, sig_bytes: int = 2,
+                       lat: dict | None = None) -> dict:
+    """The events stage's kernels' (csrc/events_fused.cu) bound on a [B, L]
+    chunk: the stage's own inputs and outputs, the signal (sig_bytes a
+    sample), the row lengths and the carry read, the events, their counts
+    and the carry written (L sig_bytes + 4 e_cap + 32 B a row); with the
+    card's latencies, the detector's critical path (peaks_bound), which the
+    three launches run in series.  Beside it, `staged_bytes`: what the
+    kernels hand each other through global memory, the clipped row and both
+    t-statistics written and read again, the detector's two i32 emissions a
+    position written and read (40 B L a row)."""
+    out = bound(float(b * (l * sig_bytes + 4 * e_cap + 32)),
+                critical_path=None if lat is None else
+                n_live * chain_cycles(PEAKS_CHAIN, lat))
+    return {**out, "staged_bytes": 40 * b * l}
+
+
 def diff_filter_bound(b: int, e: int, n_live: int, lat: dict | None = None) -> dict:
     """The diff filter's (K7) bound on [B, E] events: read once, one byte an
     event written (5 B E + 4 B bytes); with the card's latencies, the

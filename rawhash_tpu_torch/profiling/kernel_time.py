@@ -18,9 +18,11 @@ kernels timed so.
     python -m rawhash_tpu_torch.profiling.kernel_time [--probe | --dtw]
 
 prints the card's name and power limit, then one JSON line per shape of
-the events stage (256 reads of 4000 and of 28672 samples): the ordered
-sums (K6) as the stage calls them, each beside torch.sum / torch.cumsum on
-the same input, and the peak detector (K5); then the host path of one
+the events stage (256 reads of 4000 and of 28672 samples): the whole
+stage (`detect_events_batch` on f16 samples: the three kernels of
+csrc/events_fused.cu), the ordered sums (K6) as the plain version calls
+them, each beside torch.sum / torch.cumsum on the same input, and the peak
+detector (K5); then the host path of one
 ordered-sum call, piece by piece (`host_pieces`).  With --probe, also K6's
 fixed part and its level 0 apart (`scan_probe`) and where a launch's time
 goes, phase by phase, from a build of csrc/ordered_scan.cu that stamps each
@@ -163,6 +165,23 @@ def scan_times(events, l: int) -> dict:
         "stage": times(lambda: stage_scans(events, sig_m, normc, psum_in)),
     }
     out["stage"]["launches"] = 3 if fused(events) else 5
+    return out
+
+
+STAGE_E_CAP = {4000: 768, 28672: 16384}  # the engine's e_cap at each shape
+
+
+def stage_times(events, l: int) -> dict:
+    """The events stage of `events` (detect_events_batch) on one chunk of B
+    nanopore-like reads of l samples, f16 as the engine ships them."""
+    dev = torch.device("cuda")
+    sig = torch.from_numpy(synthetic.signal_chunk(np.random.default_rng(3), B, l))
+    sig = sig.half().to(dev)
+    slen = torch.full((B,), l, dtype=torch.int32, device=dev)
+    carry = events.NormCarry.zeros(B, dev)
+    out = times(lambda: events.detect_events_batch(sig, slen, carry,
+                                                   e_cap=STAGE_E_CAP[l]), n=4)
+    out["e_cap"] = STAGE_E_CAP[l]
     return out
 
 
@@ -495,7 +514,8 @@ def main(argv=None) -> int:
         print(json.dumps({"dtw_paths": row}), flush=True)
         return 0 if all(row["equal"].values()) else 1
     for l in SHAPES:
-        print(json.dumps({"b": B, "l": l, "scans": scan_times(events, l),
+        print(json.dumps({"b": B, "l": l, "stage": stage_times(events, l),
+                          "scans": scan_times(events, l),
                           "gen_peaks": peaks_times(events, l)}), flush=True)
     print(json.dumps({"host_us": host_pieces()}), flush=True)
     if "--probe" in argv:

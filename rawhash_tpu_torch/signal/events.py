@@ -12,24 +12,29 @@ package on the CPU and the same on every device, whatever order a library
 reduction would take.  The t-statistics can still differ from the JAX CPU
 build by an ulp or two, so events agree to ~1e-5, not bit for bit.
 
-The serial parts run as CUDA kernels on CUDA tensors, as the JAX package
-compiles them into its events program: the peak detector (`_gen_peaks`,
-csrc/events_peaks.cu) and the ordered sums (`ordered_cumsum`,
-`ordered_sum`, csrc/ordered_scan.cu).  On CPU tensors each runs its plain
-version (`*_plain`), which the kernel equals bit for bit.  Each wrapper
-counts its launches (`fn.launches`); none reads a value back to the host.
+On CUDA tensors `detect_events_batch` is one call of three kernels
+(`events_fused`: csrc/events_fused.cu around the peak detector of
+csrc/events_peaks.cu), as the JAX package compiles the stage into one
+program; on CPU tensors it is the plain version below, which the kernels
+equal bit for bit.  The serial parts also have kernels of their own, each
+the plain version's counterpart on CUDA tensors: the peak detector
+(`_gen_peaks`, csrc/events_peaks.cu) and the ordered sums
+(`ordered_cumsum`, `ordered_sum`, csrc/ordered_scan.cu); on CPU tensors
+each runs its plain version (`*_plain`).  Each wrapper counts its kernel
+launches (`fn.launches`); none reads a value back to the host.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from .._build import check_operand, kernel
+from .._build import check_operand, kernel, load_library
 
 FLT_MIN = float(np.finfo(np.float32).tiny)
 FLT_MAX = float(np.finfo(np.float32).max)
@@ -56,6 +61,16 @@ def fma(a, b, c) -> torch.Tensor:
     a, b, c = (x.to(torch.float64) if isinstance(x, torch.Tensor) else x
                for x in (a, b, c))
     return (a * b + c).to(torch.float32)
+
+
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """The f32 square root rounded to nearest, as XLA (the JAX package),
+    CUDA and the kernels compute it.  torch's f32 sqrt on the CPU is a vectorised
+    approximation off by an ulp on ~0.7% of values (and exact on a
+    tensor's scalar tail, so a row's result hung on its place in the
+    batch); the f64 root rounds to the right f32 one, since the root of an
+    f32 lies at least 2^-51 (relative) from a midpoint of two f32 values."""
+    return torch.sqrt(x.to(torch.float64)).to(torch.float32)
 
 
 class NormCarry(NamedTuple):
@@ -143,12 +158,14 @@ _ARGTYPES = {
     "rh_events_peaks": [_P] * 4 + [_I] * 2 + [_F] * 3 + [_I] * 3 + [_P],
     "rh_diff_filter": [_P] * 3 + [_I] * 2 + [_F, _P],
     "rh_dtw_banded": [_P] * 9 + [_I] * 5 + [_P, _P],
+    "rh_events_fused": [_P, _LL, _I] + [_P] * 10 + [_I] * 3 + [_F] * 3 + [_I] * 2 + [_P],
 }
 
 
-def launch_counted(fn, entry: str, dev: torch.device, *args) -> None:
-    """Launch the kernel `entry` with args and dev's current stream; raise
-    if the launch fails, else count it on fn."""
+def launch_counted(fn, entry: str, dev: torch.device, *args, kernels: int = 1) -> None:
+    """Launch `entry` (which starts `kernels` kernels) with args and dev's
+    current stream; raise if the launch fails, else count its kernels on
+    fn."""
     c_fn = kernel(entry, _ARGTYPES[entry])
     # the raw handle of dev's current stream (torch.cuda.current_stream's,
     # without building a Stream object: a few microseconds a call)
@@ -161,7 +178,7 @@ def launch_counted(fn, entry: str, dev: torch.device, *args) -> None:
     if rc != 0:
         raise RuntimeError(f"{fn.__name__} kernel launch failed: CUDA error {rc}")
     with COUNT_LOCK:
-        fn.launches += 1
+        fn.launches += kernels
 
 
 def _check_rows(fn, x: torch.Tensor) -> None:
@@ -266,7 +283,7 @@ def _tstat(prefix, prefix_sq, n_sig, w: int):
     mean2 = sum2 * rw
     var = fma(-mean2, mean2, fma(sumsq2, rw, fma(sumsq1, rw, -(mean1 * mean1))))
     var = torch.clamp_min(var * rw, FLT_MIN)
-    t = torch.abs(mean2 - mean1) * (1.0 / torch.sqrt(var))
+    t = torch.abs(mean2 - mean1) * (1.0 / sqrt_rn(var))
     ns = n_sig[:, None]
     valid = (i >= w) & (i <= ns - w) & (ns >= 2 * w)
     return torch.where(valid, t, 0.0)
@@ -451,8 +468,68 @@ def _segment_events(norm, n_sig, emitted, emit_ok, n_peaks, e_cap: int):
     return torch.where(qs < n_ev[:, None], events, 0.0), n_ev
 
 
+def takes_kernels(sig: torch.Tensor) -> bool:
+    """Whether detect_events_batch runs the chunk sig [B, L] as the
+    kernels (`events_fused`): a CUDA tensor with rows and samples."""
+    return sig.device.type == "cuda" and sig.shape[0] > 0 and sig.shape[1] > 0
+
+
+@functools.lru_cache(maxsize=None)
+def fused_layout(b: int, l: int, e_cap: int) -> tuple:
+    """(workspace bytes, wide) of `events_fused` on b rows of l samples and
+    e_cap events: wide is 1 if its first row program stages a row in the
+    workspace's global scratch (the row does not fit a block's shared
+    memory), + 2 if the second does.  A function of the shape alone."""
+    fn = load_library().rh_events_fused_workspace
+    fn.restype = ctypes.c_longlong
+    fn.argtypes = [_I, _I, _I, ctypes.POINTER(ctypes.c_int)]
+    wide = ctypes.c_int(0)
+    return int(fn(b, l, e_cap, ctypes.byref(wide))), wide.value
+
+
+def events_fused(sig, slen, carry: NormCarry, *, window_length1: int,
+                 window_length2: int, threshold1: float, threshold2: float,
+                 peak_height: float, e_cap: int):
+    """`detect_events_batch` of CUDA tensors (sig f16 or f32 [B, L] with
+    contiguous rows, L >= 1; slen, carry.n i32 [B]; carry.sum, carry.sum_sq
+    f32 [B]) by the kernels of csrc/events_fused.cu, in one call that
+    launches three kernels; the same outputs bit for bit as the plain
+    version on the CPU.  Counts its calls (`events_fused.calls`) and those
+    that staged a row in global memory (`events_fused.wide_calls`)."""
+    b, l = sig.shape
+    dev = sig.device
+    if sig.dtype not in (torch.float16, torch.float32) or (l > 1 and sig.stride(1) != 1):
+        raise ValueError(f"events_fused: sig must be f16 or f32 with contiguous rows, "
+                         f"got {sig.dtype} strides {sig.stride()}")
+    for name, t, dtype in (("slen", slen, torch.int32), ("carry.sum", carry.sum, torch.float32),
+                           ("carry.sum_sq", carry.sum_sq, torch.float32),
+                           ("carry.n", carry.n, torch.int32)):
+        check_operand("events_fused", name, t, dtype, (b,), dev)
+    f32t, i32t = torch.float32, torch.int32
+    events = torch.empty((b, e_cap), dtype=f32t, device=dev)
+    n_ev, new_n = (torch.empty(b, dtype=i32t, device=dev) for _ in range(2))
+    new_sum, new_sumsq = (torch.empty(b, dtype=f32t, device=dev) for _ in range(2))
+    ws_bytes, wide = fused_layout(b, l, e_cap)
+    ws = torch.empty(ws_bytes, dtype=torch.uint8, device=dev)
+    launch_counted(events_fused, "rh_events_fused", dev, sig.data_ptr(), sig.stride(0),
+                   int(sig.dtype == torch.float16), slen.data_ptr(), carry.sum.data_ptr(),
+                   carry.sum_sq.data_ptr(), carry.n.data_ptr(), events.data_ptr(),
+                   n_ev.data_ptr(), new_sum.data_ptr(), new_sumsq.data_ptr(),
+                   new_n.data_ptr(), ws.data_ptr(), b, l, e_cap, f32(threshold1),
+                   f32(threshold2), f32(peak_height), window_length1, window_length2,
+                   kernels=3)
+    with COUNT_LOCK:
+        events_fused.calls += 1
+        events_fused.wide_calls += int(wide != 0)
+    return events, n_ev, NormCarry(new_sum, new_sumsq, new_n)
+
+
+# its kernels, its calls, and the calls that staged a row in global memory
+events_fused.launches = events_fused.calls = events_fused.wide_calls = 0
+
+
 def detect_events_batch(
-    sig: torch.Tensor,  # f32 [B, L] padded raw signal chunk
+    sig: torch.Tensor,  # f32 (or f16) [B, L] padded raw signal chunk
     slen: torch.Tensor,  # i32 [B] valid samples per row
     carry: NormCarry,
     *,
@@ -463,9 +540,25 @@ def detect_events_batch(
     peak_height: float = 0.4,
     e_cap: int = 1024,
 ):
-    """Batched detect_events (revent.c:257-316).
+    """Batched detect_events (revent.c:257-316): on CUDA tensors by the
+    kernels (`events_fused`), on CPU tensors by the plain version
+    (`detect_events_batch_plain`), which they equal bit for bit.
 
     Returns (events f32 [B, e_cap], n_events i32 [B], new_carry)."""
+    prm = dict(window_length1=window_length1, window_length2=window_length2,
+               threshold1=threshold1, threshold2=threshold2,
+               peak_height=peak_height, e_cap=e_cap)
+    if takes_kernels(sig):
+        return events_fused(sig, slen, carry, **prm)
+    return detect_events_batch_plain(sig, slen, carry, **prm)
+
+
+def detect_events_batch_plain(sig, slen, carry: NormCarry, *, window_length1: int,
+                              window_length2: int, threshold1: float,
+                              threshold2: float, peak_height: float, e_cap: int):
+    """detect_events_batch in torch ops (f16 samples widened to f32 first);
+    on CUDA tensors its sums and its detector are the kernels K5 and K6."""
+    sig = sig.to(torch.float32)
     b, l = sig.shape
     pos = torch.arange(l, device=sig.device)[None, :]
     valid = pos < slen[:, None]
@@ -477,7 +570,7 @@ def detect_events_batch(
     new_n = carry.n + slen
     nf = torch.clamp_min(new_n, 1).to(torch.float32)
     mean = new_sum / nf
-    std = torch.sqrt(torch.clamp_min(fma(-mean, mean, new_sumsq / nf), 0.0))
+    std = sqrt_rn(torch.clamp_min(fma(-mean, mean, new_sumsq / nf), 0.0))
     std = torch.where(std > 0, std, 1.0)
     norm = (sig - mean[:, None]) / std[:, None]
     clip = valid & (norm < 3.0) & (norm > -3.0)

@@ -272,6 +272,24 @@ def test_peaks_chain_priced_by_class(boost_clock, lat, cycles):
     assert got["class_ms"]["critical_path"] == pytest.approx(28672 * cycles / HZ * 1e3)
 
 
+@pytest.mark.parametrize("l,e_cap,sig_bytes", [(4000, 768, 2), (28672, 16384, 4)])
+def test_events_stage_bound(boost_clock, l, e_cap, sig_bytes):
+    """The events stage's three kernels: the stage's inputs and outputs
+    alone (the signal, row lengths and carry read; the events, their counts
+    and the carry written), the kernels' intermediates in global memory
+    beside them; with the card's latencies, the detector's chain, which
+    bounds the stage as it bounds K5."""
+    lat = {"viaddmnmx": 4.0, "fsetp_plop3_sel": 14.0}
+    got = bounds.events_stage_bound(256, l, e_cap, l, sig_bytes, lat)
+    assert got["class_ms"]["bytes"] == pytest.approx(
+        256 * (l * sig_bytes + 4 * e_cap + 4 + 12 + 4 + 12) / 3.35e12 * 1e3)
+    assert got["staged_bytes"] == 256 * l * 40
+    assert got["class_ms"]["critical_path"] == pytest.approx(
+        bounds.peaks_bound(256, l, l, lat)["class_ms"]["critical_path"])
+    assert got["bound_class"] == "critical_path"
+    assert bounds.events_stage_bound(256, l, e_cap, l, sig_bytes)["bound_class"] == "bytes"
+
+
 def test_peaks_chain_needs_the_measured_classes():
     """A latency table without the compare-select chain cannot price K5."""
     with pytest.raises(KeyError):

@@ -551,11 +551,11 @@ def _events_and_sketch(sig, slen, preset):
 
 @pytest.mark.cuda
 def test_events_and_sketch_on_the_card(cuda_device):
-    """The events and sketch stage on the card launches each kernel (the
-    detector, the filter and the ordered sum once, the ordered prefix sum
-    twice: a value and its square go through one launch), with no
-    sync: the same torch ops at L = 4000 and 8000, none of them reading a
-    value back."""
+    """The events and sketch stage on the card launches the events stage's
+    three kernels in one call (events_fused) and the filter once, and none
+    of the events stage's single kernels (the detector, the ordered sums),
+    with no sync: the same torch ops at L = 4000 and 8000, none of them
+    reading a value back."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
     class Count(TorchDispatchMode):
@@ -572,7 +572,8 @@ def test_events_and_sketch_on_the_card(cuda_device):
         sig = torch.from_numpy(signal_chunk(np.random.default_rng(l), 64, l)).to(cuda_device)
         slen = torch.full((64,), l, dtype=torch.int32, device=cuda_device)
         _events_and_sketch(sig, slen, "viral")  # warm-up: the library is built
-        counters = (ev._gen_peaks, ev.ordered_cumsum, ev.ordered_sum, sk._diff_filter)
+        counters = (ev.events_fused, sk._diff_filter, ev._gen_peaks, ev.ordered_cumsum,
+                    ev.ordered_sum)
         before = [f.launches for f in counters]
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
@@ -582,6 +583,161 @@ def test_events_and_sketch_on_the_card(cuda_device):
         finally:
             torch.cuda.set_sync_debug_mode("default")
         ops[l] = count.n
-        assert [f.launches - n for f, n in zip(counters, before)] == [1, 2, 1, 1]
+        assert [f.launches - n for f, n in zip(counters, before)] == [3, 1, 0, 0, 0]
         assert int(out[1].min()) > 50 and bool(out[6].any())
     assert ops[4000] == ops[8000]
+
+
+def _d2_reads(n, seed=23):
+    """n D2-like reads (2500 bases each from a random genome, the signal
+    generator's pore), as signals."""
+    from rawhash_tpu_torch.io.signal_gen import simulate_reads
+    from rawhash_tpu_torch.pore import synthetic_pore
+    from rawhash_tpu_torch.synthetic import random_genome
+
+    rng = np.random.default_rng(seed)
+    genome = random_genome(200_000, rng)
+    return [s for _, s, _, _ in simulate_reads(genome, synthetic_pore(k=6), n_reads=n,
+                                               read_len=2500, rng=rng)]
+
+
+def _chunk(reads, c, l):
+    """Chunk c of the reads (l samples each) as the engine assembles it:
+    f16 [B, l] zero-padded, and each row's samples."""
+    sig = np.zeros((len(reads), l), np.float32)
+    slen = np.zeros(len(reads), np.int32)
+    for i, s in enumerate(reads):
+        seg = s[c * l:(c + 1) * l]
+        sig[i, :seg.shape[0]] = seg
+        slen[i] = seg.shape[0]
+    return torch.from_numpy(sig.astype(np.float16)), torch.from_numpy(slen)
+
+
+def _stage_outputs(out):
+    events, n_ev, carry = out
+    return (events, n_ev, *carry)
+
+
+EVENT_CASES = {  # preset, rows, chunk length, e_cap
+    "viral": ("viral", 256, 4000, 768),
+    "d2": ("sensitive", 256, 4000, 768),
+    "d2_last_chunk": ("sensitive", 256, 4000, 768),
+    "f32": ("viral", 64, 4000, 768),
+    "ava": ("ava", 16, 28672, 16384),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(EVENT_CASES))
+def test_events_stage_kernels_match_cpu(cuda_device, case):
+    """The events stage on the card (events_fused: three kernels, one call)
+    equals detect_events_batch on the CPU bit for bit: events, counts and
+    the carry, on nanopore-like viral chunks, D2-like reads' chunks 0 and 5
+    (the last, on the carry of chunks 0-4, every read ending inside it),
+    f32 samples, and ava's 28672-sample rows (both row programs in global
+    memory)."""
+    preset, b, l, e_cap = EVENT_CASES[case]
+    _, mo = options(preset)
+    prm = dict(window_length1=mo.window_length1, window_length2=mo.window_length2,
+               threshold1=mo.threshold1, threshold2=mo.threshold2,
+               peak_height=mo.peak_height, e_cap=e_cap)
+    carry = ev.NormCarry.zeros(b, "cpu")
+    if case.startswith("d2"):
+        reads = _d2_reads(b)
+        sig, slen = _chunk(reads, 0, l)
+        if case == "d2_last_chunk":  # chunk 5, where every read ends
+            for c in range(1, 6):
+                carry = ev.detect_events_batch(sig, slen, carry, **prm)[2]
+                sig, slen = _chunk(reads, c, l)
+            assert (slen < l).all() and (slen > 0).all()
+    else:
+        sig = torch.from_numpy(signal_chunk(np.random.default_rng(l + b), b, l))
+        sig = sig if case == "f32" else sig.half()
+        slen = torch.full((b,), l, dtype=torch.int32)
+    want = ev.detect_events_batch(sig, slen, carry, **prm)
+    dev_carry = ev.NormCarry(*(c.to(cuda_device) for c in carry))
+    before = ev.events_fused.launches, ev.events_fused.calls, ev.events_fused.wide_calls
+    got = ev.detect_events_batch(sig.to(cuda_device), slen.to(cuda_device), dev_carry, **prm)
+    torch.cuda.synchronize()
+    assert ev.events_fused.launches == before[0] + 3
+    assert ev.events_fused.calls == before[1] + 1
+    assert ev.events_fused.wide_calls == before[2] + (case == "ava")
+    for g, w in zip(_stage_outputs(got), _stage_outputs(want)):
+        assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+    assert int(want[1].float().mean()) > 50
+
+
+@pytest.mark.cuda
+def test_events_stage_rows_on_the_card_against_the_cpu(cuda_device, monkeypatch):
+    """The rows of D2-like chunks whose events differ from the CPU path's,
+    before this stage's kernels (the op chain on the card against the op
+    chain on the CPU, both with torch's f32 sqrt, which is off by an ulp on
+    some values on the CPU) and after (the kernels against the CPU path):
+    none after."""
+    _, mo = options("sensitive")
+    prm = dict(window_length1=mo.window_length1, window_length2=mo.window_length2,
+               threshold1=mo.threshold1, threshold2=mo.threshold2,
+               peak_height=mo.peak_height, e_cap=768)
+    reads = _d2_reads(512, seed=29)
+    differ = {"before": 0, "after": 0}
+    rows = 0
+    for start in (0, 256):
+        sig, slen = _chunk(reads[start:start + 256], 0, 4000)
+        carry = ev.NormCarry.zeros(256, "cpu")
+        dev = [sig.to(cuda_device), slen.to(cuda_device),
+               ev.NormCarry.zeros(256, cuda_device)]
+        cpu_now = ev.detect_events_batch(sig, slen, carry, **prm)
+        card_now = ev.detect_events_batch(*dev, **prm)
+        with monkeypatch.context() as m:
+            m.setattr(ev, "sqrt_rn", torch.sqrt)
+            cpu_then = ev.detect_events_batch_plain(sig, slen, carry, **prm)
+            card_then = ev.detect_events_batch_plain(*dev, **prm)
+        for key, (a, c) in {"before": (card_then, cpu_then),
+                            "after": (card_now, cpu_now)}.items():
+            differ[key] += int((a[0].cpu() != c[0]).any(1).sum())
+        rows += 256
+    print(f"rows whose events differ from the CPU path's, of {rows}: {differ}")
+    assert differ["after"] == 0
+
+
+@pytest.mark.cuda
+def test_events_stage_launches_three_kernels_and_counts_each_step(cuda_device, monkeypatch):
+    """The engine's events stage is three kernels a chunk step on the card,
+    and engine.stats counts each chunk step that took them (none of the
+    fixture's rows stage in global memory)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rawhash_tpu_torch.map import engine as eng_mod
+    from rawhash_tpu_torch.synthetic import deployment
+
+    index, mopt, reads = deployment(20_000, "viral", 16, 900, 1024, 17)
+    batches = [[(n, s) for n, s, _, _ in reads[i:i + 4]] for i in range(0, 16, 4)]
+    steps = []
+    step = eng_mod.chunk_step
+
+    def spy(*a, **k):
+        steps.append(a[1].shape)
+        return step(*a, **k)
+    monkeypatch.setattr(eng_mod, "chunk_step", spy)
+    engine = eng_mod.MappingEngine(index, mopt, device=cuda_device)
+    for _ in engine.map_stream(batches):
+        pass
+    assert len(steps) > len(batches)
+    assert engine.stats["events_fused_steps"] == len(steps)
+    assert engine.stats["events_fused_wide_steps"] == 0
+
+    b, l = steps[0]
+    sig = torch.from_numpy(signal_chunk(np.random.default_rng(5), b, l)).half().to(cuda_device)
+    slen = torch.full((b,), l, dtype=torch.int32, device=cuda_device)
+    carry = ev.NormCarry.zeros(b, cuda_device)
+    ev.detect_events_batch(sig, slen, carry)  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ev.detect_events_batch(sig, slen, carry)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 3, kernels
+    for name, kernel in zip(("events_norm_kernel", "events_peaks_kernel",
+                             "events_segments_kernel"), kernels):
+        assert name in kernel, kernels

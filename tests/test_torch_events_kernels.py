@@ -1,10 +1,11 @@
 """The events and sketch kernels' own logic on the CPU: the headers of the
 peak detector (csrc/events_peaks.cuh), the ordered sums
-(csrc/ordered_scan.cuh) and the diff filter (csrc/diff_filter.cuh), built
-for the host with g++ (csrc/*_host.cpp), held bit for bit against the plain
-PyTorch versions on seeded inputs and edge cases; the plain versions held
-bit for bit against the JAX package's functions on identical inputs; and
-the wrappers' checks.  The kernels themselves run on a card in
+(csrc/ordered_scan.cuh), the diff filter (csrc/diff_filter.cuh) and the
+events stage's row programs (csrc/events_fused.cuh), built for the host
+with g++ (csrc/*_host.cpp), held bit for bit against the plain PyTorch
+versions on seeded inputs and edge cases; the plain versions held bit for
+bit against the JAX package's functions on identical inputs; and the
+wrappers' checks.  The kernels themselves run on a card in
 test_torch_cuda.py."""
 
 import ctypes
@@ -23,7 +24,7 @@ from rawhash_tpu_torch._build import load_host_library  # noqa: E402
 from rawhash_tpu_torch.signal import events as tev  # noqa: E402
 from rawhash_tpu_torch.sketch import device as tsk  # noqa: E402
 from rawhash_tpu_torch.synthetic import (  # noqa: E402
-    event_tstats, options, peak_handoff_tstats,
+    event_tstats, options, peak_handoff_tstats, signal_chunk,
 )
 
 P = ctypes.c_void_p
@@ -457,3 +458,189 @@ def test_diff_filter_rejects_wrong_dtype_or_layout(case):
             "short n_ev": (ev, n[:2])}[case]
     with pytest.raises(ValueError):
         tsk._diff_filter(*args, DIFF)
+
+
+# ---- the events stage's kernels (csrc/events_fused.cuh) ---------------------
+
+# the detector's parameters as detect_events_batch takes them
+STAGE = dict(window_length1=VIRAL[1].window_length1,
+             window_length2=VIRAL[1].window_length2,
+             threshold1=VIRAL[1].threshold1, threshold2=VIRAL[1].threshold2,
+             peak_height=VIRAL[1].peak_height)
+# windows of 1 and 2 positions: segments of 2 and 3 positions
+SHORT = dict(window_length1=1, window_length2=2, threshold1=1.0, threshold2=2.0,
+             peak_height=0.2)
+
+
+def stage_plan(l, e_cap):
+    """The words of each row program's scratch (rh_ev_plan_host), and
+    whether each stages its rows in global memory (past a block's 227 KB of
+    shared memory, as events_fused.cu decides)."""
+    lib = _lib("events_fused")
+    lib.rh_ev_plan_host.argtypes = [ctypes.c_int, ctypes.c_int, P]
+    out = np.zeros(4, np.int64)
+    lib.rh_ev_plan_host(l, e_cap, _ptr(out))
+    assert [bool(4 * w > 227 * 1024) for w in out[:2]] == [not f for f in out[2:]]
+    return [int(w) for w in out[:2]], [not f for f in out[2:]]
+
+
+def host_stage(sig, slen, carry, e_cap, prm, emitted=None):
+    """The events stage as events_fused.cu launches it, its kernels' logic
+    on the host: rh_ev_norm_host, the detector (rh_peaks_host, or the given
+    emissions), rh_ev_segments_host.  Returns (events, n_ev, sum, sum_sq,
+    n) and the emissions, as numpy."""
+    lib = _lib("events_fused")
+    i = ctypes.c_int
+    lib.rh_ev_norm_host.argtypes = [P, ctypes.c_longlong] + [P] * 11 + [i] * 4
+    lib.rh_ev_segments_host.argtypes = [P] * 5 + [i] * 3
+    b, l = sig.shape
+    c_sum, c_sq, c_n = carry
+    o_sum, o_sq = np.full(b, np.nan, np.float32), np.full(b, np.nan, np.float32)
+    o_n, n_sig = np.full(b, -7, np.int32), np.full(b, -7, np.int32)
+    normc, ts1, ts2 = (np.full((b, l), np.nan, np.float32) for _ in range(3))
+    w1, w2 = prm["window_length1"], prm["window_length2"]
+    lib.rh_ev_norm_host(_ptr(sig), sig.strides[0] // 4, _ptr(slen), _ptr(c_sum),
+                        _ptr(c_sq), _ptr(c_n), _ptr(o_sum), _ptr(o_sq), _ptr(o_n),
+                        _ptr(normc), _ptr(n_sig), _ptr(ts1), _ptr(ts2), b, l, w1, w2)
+    if emitted is None:
+        emitted = host_peaks(ts1, ts2, n_sig, t1=prm["threshold1"],
+                             t2=prm["threshold2"], w1=w1, w2=w2,
+                             peak_height=prm["peak_height"])
+    ev, n_ev = np.full((b, e_cap), np.nan, np.float32), np.full(b, -7, np.int32)
+    lib.rh_ev_segments_host(_ptr(emitted), _ptr(normc), _ptr(n_sig), _ptr(ev),
+                            _ptr(n_ev), b, l, e_cap)
+    return (ev, n_ev, o_sum, o_sq, o_n), emitted
+
+
+def plain_stage(sig, slen, carry, e_cap, prm, emitted=None, monkeypatch=None):
+    """detect_events_batch on CPU tensors (its detector's emissions replaced
+    by the given ones), as numpy."""
+    t = torch.from_numpy
+    if emitted is not None:
+        monkeypatch.setattr(tev, "_gen_peaks", lambda *a, **k: t(emitted))
+    ev, n_ev, c = tev.detect_events_batch(t(sig), t(slen), tev.NormCarry(*map(t, carry)),
+                                          e_cap=e_cap, **prm)
+    return (ev.numpy(), n_ev.numpy(), *(x.numpy() for x in c))
+
+
+def _zero_carry(b):
+    return (np.zeros(b, np.float32), np.zeros(b, np.float32), np.zeros(b, np.int32))
+
+
+def _stage_case(case):
+    """(sig, slen, carry, e_cap, detector parameters, emissions or None,
+    a chunk to run first for the carry or None) of a case."""
+    rng = np.random.default_rng(STAGE_CASES.index(case))
+    full = lambda b, l: np.full(b, l, np.int32)  # noqa: E731
+    if case == "cell":  # the benchmark cell's chunk
+        b, l = 256, 4000
+        return signal_chunk(rng, b, l), full(b, l), _zero_carry(b), 768, STAGE, None, None
+    if case == "w4096":
+        b, l = 12, 4096
+        return signal_chunk(rng, b, l), full(b, l), _zero_carry(b), 768, STAGE, None, None
+    if case == "w28672":  # ava's chunk: both row programs in global memory
+        b, l = 3, 28672
+        return signal_chunk(rng, b, l), full(b, l), _zero_carry(b), 16384, STAGE, None, None
+    if case == "carry":  # the second chunk of reads, on the first one's carry
+        b, l = 6, 2000
+        first = signal_chunk(rng, b, l), full(b, l)
+        return signal_chunk(rng, b, l), full(b, l), None, 768, STAGE, None, first
+    if case == "slen":  # rows of 0 samples, a few, all of L and past it
+        b, l = 8, 3000
+        slen = np.array([0, 0, 1, 17, 1500, l, l + 5, 2999], np.int32)
+        return signal_chunk(rng, b, l), slen, _zero_carry(b), 768, STAGE, None, None
+    if case == "clipped":  # a carry whose mean lies far from the chunk: every
+        # sample of rows 0 and 2 clipped; row 1 carries nothing
+        b, l = 3, 1000
+        n = np.array([100000, 0, 50000], np.int32)
+        mean = np.array([400.0, 0.0, -300.0])
+        c_sum = (n * mean).astype(np.float32)
+        c_sq = (n * (mean * mean + 1.0)).astype(np.float32)
+        return signal_chunk(rng, b, l), full(b, l), (c_sum, c_sq, n), 768, STAGE, None, None
+    if case == "over_e_cap":  # more peaks than e_cap on every row
+        b, l = 5, 4000
+        return signal_chunk(rng, b, l), full(b, l), _zero_carry(b), 40, STAGE, None, None
+    if case == "short_segments":  # windows of 1 and 2: segments of 2 and 3
+        b, l = 6, 2500
+        levels = rng.normal(90, 25, (b, l // 2 + 1))
+        sig = (np.repeat(levels, 2, 1)[:, :l] + rng.normal(0, 0.5, (b, l)))
+        return (sig.astype(np.float16).astype(np.float32), full(b, l), _zero_carry(b),
+                768, SHORT, None, None)
+    if case == "crafted_peaks":  # emissions the detector does not give: the
+        # same peak twice (a segment of 0), adjacent peaks (1), a segment of
+        # more than 64 (sorted by the whole block), peaks at 0 and past n_sig
+        # (not counted), on rows of 600 samples
+        b, l = 4, 600
+        em = np.full((b, 2 * l), -1, np.int32)
+        for r in range(b):
+            pos = np.sort(rng.choice(np.r_[1:200, 300:580], 150, replace=False))
+            pos = np.concatenate([pos, pos[::7], [0, 0, 599, 700]])
+            em[r, rng.choice(2 * l, pos.size, replace=False)] = pos
+        return signal_chunk(rng, b, l), full(b, l), _zero_carry(b), 96, STAGE, em, None
+    if case == "long_segment":  # ava-wide rows, whose segments of more than 64
+        # values the kernel sorts through a tile of 8192: a segment longer
+        # than the tile, one of exactly 8192, of 100, 65 and 64, short ones
+        b, l = 2, 28672
+        em = np.full((b, 2 * l), -1, np.int32)
+        for r in range(b):
+            pos = np.concatenate([np.arange(9, 3000, 7), [12000 + r, 20192 + r],
+                                  np.arange(20200, 26000, 11), [26097, 26162, 26226]])
+            em[r, rng.choice(2 * l, pos.size, replace=False)] = pos
+        return signal_chunk(rng, b, l), full(b, l), _zero_carry(b), 16384, STAGE, em, None
+    if case == "ties":  # integer samples: equal values inside segments
+        b, l = 6, 3000
+        levels = rng.integers(80, 100, (b, l // 9 + 1))
+        sig = (np.repeat(levels, 9, 1)[:, :l] + rng.integers(-1, 2, (b, l)))
+        return sig.astype(np.float32), full(b, l), _zero_carry(b), 768, STAGE, None, None
+    raise KeyError(case)
+
+
+STAGE_CASES = ["cell", "w4096", "w28672", "carry", "slen", "clipped", "over_e_cap",
+               "short_segments", "crafted_peaks", "long_segment", "ties"]
+
+
+@pytest.mark.parametrize("case", STAGE_CASES)
+def test_events_stage_header_matches_plain(case, monkeypatch):
+    """The events stage's kernels (events_fused.cuh's two row programs
+    around the peak detector), built for the host, give detect_events_batch's
+    events, counts and carry on CPU tensors bit for bit."""
+    sig, slen, carry, e_cap, prm, emitted, first = _stage_case(case)
+    b, l = sig.shape
+    if first is not None:  # the carry both sides take from the first chunk
+        got0 = host_stage(*first, _zero_carry(b), e_cap, prm)[0]
+        want0 = plain_stage(*first, _zero_carry(b), e_cap, prm)
+        for g, w in zip(got0, want0):
+            np.testing.assert_array_equal(g, w)
+        carry = want0[2:]
+    got, em = host_stage(sig, slen, carry, e_cap, prm, emitted)
+    want = plain_stage(sig, slen, carry, e_cap, prm, emitted, monkeypatch)
+    for name, g, w in zip(("events", "n_ev", "sum", "sum_sq", "n"), got, want):
+        assert g.dtype == w.dtype, name
+        np.testing.assert_array_equal(g.view(np.int32), w.view(np.int32), err_msg=name)
+    events, n_ev = want[:2]
+    assert (events[:, :e_cap][np.arange(e_cap)[None, :] >= n_ev[:, None]] == 0).all()
+    # what each case is there for
+    wide = stage_plan(l, e_cap)[1]
+    assert wide == ([True, True] if l == 28672 else [False, False])
+    if case == "cell":
+        assert n_ev.min() > 100
+    elif case == "carry":
+        assert (carry[2] == l).all() and (want[4] == 2 * l).all()
+    elif case == "slen":
+        assert (n_ev[:3] == 0).all() and n_ev[4:].min() > 50
+    elif case == "clipped":
+        assert (n_ev[[0, 2]] == 0).all() and n_ev[1] > 50
+    elif case == "over_e_cap":
+        assert (n_ev == e_cap).all()
+    elif case in ("short_segments", "crafted_peaks"):
+        lens = set()
+        for r in range(b):
+            pk = np.sort(em[r][(em[r] > 0) & (em[r] < l)])[: n_ev[r]]
+            lens |= set(np.diff(np.concatenate([[0], pk])).tolist())
+        assert {2, 3} <= lens and (case == "short_segments" or (
+            {0, 1} <= lens and max(lens) > 64))
+    elif case == "long_segment":
+        gaps = np.diff(np.sort(em[0][em[0] > 0]))
+        assert gaps.max() > 8192 and {8192, 100, 65, 64} <= set(gaps) and (n_ev > 500).all()
+    elif case == "ties":
+        assert n_ev.min() > 100
